@@ -1,0 +1,8 @@
+"""Hand-written CUDA kernels for Hopper and their plain PyTorch versions.
+
+Every wrapper here takes its plain version only for CPU tensors; for CUDA
+tensors it launches its kernel or raises. Each keeps a launch count in a plain
+integer attribute (``wrapper.launches``).
+"""
+
+KERNEL_SOURCES = ("flash_attention", "conv_pos")  # csrc/<name>.cu
