@@ -20,7 +20,21 @@ Phases, each of which fails the run (non-zero exit) on any error:
    and of the planned length; a small-input parity check of the serving path
    (bf16 + kernels) against the fp32 plain path;
 4. bench geometry: batch 8, 1024-frame bucket, 128 reference frames, text_pad
-   512, Ralston NFE 20, CFG 2, bf16 — wall time and audio-seconds per second.
+   512, Ralston NFE 20, CFG 2, bf16 — wall time and audio-seconds per second;
+5. training kernels (with phase 2): the forward-with-logsumexp and backward
+   attention kernels at the training shape (F5-TTS Base heads, bf16, one
+   38 400-frame batch packed as 37 x 1024, a ragged n = 1000 and the 30-s
+   bucket n = 3072) against their fp32 plain versions, with times, bounds and
+   SDPA forward / backward as the library yardstick;
+6. training: ``Trainer`` at F5-TTS Base width (full depth, random init from
+   seed 0), bf16 compute over fp32 params, AdamW + EMA, five steps on
+   synthetic frame-packed batches of ~38 400 frames (one of them 12 x 3072);
+   launch counts per step against the design (44 forward launches with the
+   per-block recompute, 44 backward launches = 22 x (dK/dV + dQ), 2 conv-pos
+   launches), finite loss and gradient norm, params that move, step time and
+   mel-frames/s, a profiler breakdown of one step; and one step's gradients
+   through the kernels (bf16) against the fp32 plain path on a small
+   geometry.
 
 The last lines are the card's name and power limit, one ``{"kernels": [...]}``
 JSON line and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -44,6 +58,9 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 ATTN_TOL = 2e-2  # bf16 kernel vs fp32 plain on the same bf16 inputs
 CONV_TOL = 3e-2  # bf16 (bf16 intermediate) vs fp32 plain (fp32 intermediate)
+LSE_TOL = 1e-3  # training forward's lse: fp32 in both, scores from the same bf16 inputs
+GRAD_TOL = 3e-2  # attention gradients, max abs error over max(1, peak |ref|): p and dS rounded to bf16
+TRAIN_GRAD_RTOL = 5e-2  # relative L2 of a bf16 kernel train step's gradients vs the fp32 plain path
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -264,8 +281,8 @@ def engine_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, launches: dict) -> 
         check(bool(np.isfinite(wave).all()) and float(np.abs(wave).max()) > 0, f"request {i}: wave not finite/non-zero")
         check(bool(np.isfinite(mel).all()), f"request {i}: mel not finite")
     wall = time.perf_counter() - t0
-    launches["flash_attention"] = flash_attention.launches
-    launches["conv_pos"] = conv_pos.launches
+    launches["flash_attention"]["serve"] = flash_attention.launches
+    launches["conv_pos"]["serve"] = conv_pos.launches
     n_forwards = sum(steps * forwards_per_step for steps, _ in solves)
     want_flash, want_conv = n_blocks * n_forwards, 2 * n_forwards
     log(f"engine: {len(requests)} requests, {len(solves)} solves {solves} in {wall:.3f} s; launches "
@@ -363,9 +380,207 @@ def profile_solve(run) -> None:
         log(f"  kernel {e.key[:80]!r}: {e.self_device_time_total / 1e3:.1f} ms, {e.count} launches")
 
 
+# ---------------------------------------------------------------------------
+# training kernels and the training path
+# ---------------------------------------------------------------------------
+
+
+def _rel_err(got, ref) -> float:
+    return float((got.float() - ref.float()).abs().max()) / max(1.0, float(ref.float().abs().max()))
+
+
+def train_kernel_phase(dev) -> list[dict]:
+    from f5tts_tpu_torch.ops.kernels import flash_attention_train as ft
+
+    h, d = 16, 64  # F5-TTS Base heads
+    rows = []
+    for b, n, what in ((37, 1024, "one 38 400-frame batch"), (4, 1000, "ragged n"), (12, 3072, "30-s bucket")):
+        g = torch.Generator(device="cpu").manual_seed(n)
+        q, k, v, do = (torch.randn((b, h, n, d), generator=g).to(dev, torch.bfloat16) for _ in range(4))
+        o, lse = ft.flash_attention_train_fwd(q, k, v)
+        dq, dk, dv = ft.flash_attention_train_bwd(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        nb = b if b * n * n <= 37 * 1024 * 1024 else 2  # fp32 plain on 2 rows of the 3072 bucket (its n^2 tensors)
+        f32 = [t[:nb].float() for t in (q, k, v, do)]
+        ref_o, ref_lse = ft.flash_attention_train_fwd_plain(*f32[:3])
+        refs = ft.flash_attention_train_bwd_plain(*f32[:3], ref_o, ref_lse, f32[3])
+        err_o = float((o[:nb].float() - ref_o).abs().max())
+        err_lse = float((lse[:nb] - ref_lse).abs().max())
+        errs = [float((got[:nb].float() - ref).abs().max()) for got, ref in zip((dq, dk, dv), refs)]
+        rels = [_rel_err(got[:nb], ref) for got, ref in zip((dq, dk, dv), refs)]
+        peaks = [float(ref.abs().max()) for ref in refs]
+        del ref_o, ref_lse, refs, f32
+        log(f"train attention b={b} n={n} ({what}; fp32 plain on {nb} rows): o err {err_o:.3e} (tol {ATTN_TOL}), "
+            f"lse err {err_lse:.3e} (tol {LSE_TOL}), dq/dk/dv max abs err {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} "
+            f"at peaks {peaks[0]:.3f}/{peaks[1]:.3f}/{peaks[2]:.3f}, relative {max(rels):.3e} (tol {GRAD_TOL})")
+        check(np.isfinite(err_o) and err_o <= ATTN_TOL, f"train forward o error {err_o}")
+        check(np.isfinite(err_lse) and err_lse <= LSE_TOL, f"train forward lse error {err_lse}")
+        check(all(np.isfinite(rels)) and max(rels) <= GRAD_TOL, f"train backward error {rels}")
+
+        fwd_ms = time_ms(lambda: ft.flash_attention_train_fwd(q, k, v))
+        bwd_ms = time_ms(lambda: ft.flash_attention_train_bwd(q, k, v, o, lse, do))
+        qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qs, ks, vs)
+        lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        lib_bwd = time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), do, retain_graph=True))
+        lib_both = time_ms(lambda: torch.autograd.grad(F.scaled_dot_product_attention(qs, ks, vs), (qs, ks, vs), do))
+        plain_fwd = plain_bwd = None
+        if nb == b and what.startswith("one"):
+            plain_fwd = time_ms(lambda: ft.flash_attention_train_fwd_plain(q, k, v), iters=5, warmup=1)
+            plain_bwd = time_ms(lambda: ft.flash_attention_train_bwd_plain(q, k, v, o, lse, do), iters=5, warmup=1)
+        elems = b * h * n * d
+        fb, fby = bound_ms(4.0 * b * h * n * n * d, 4 * elems * 2 + b * h * n * 4, PEAK_BF16_FLOPS)
+        bb, bby = bound_ms(10.0 * b * h * n * n * d, 8 * elems * 2 + b * h * n * 4, PEAK_BF16_FLOPS)
+        log(f"train attention b={b} n={n} times: forward {fwd_ms:.4f} ms (bound {fb:.4f} {fby}, SDPA {lib_fwd:.4f}), "
+            f"backward {bwd_ms:.4f} ms (bound {bb:.4f} {bby}, SDPA backward {lib_bwd:.4f}, SDPA forward+backward "
+            f"{lib_both:.4f}); plain forward {plain_fwd} ms, plain backward {plain_bwd} ms")
+        if what.startswith("one"):  # the main-path shape: the numbers of the kernels line
+            rows = [
+                {"name": "flash_attention_train_fwd", "route": "cuda",
+                 "source": "f5tts_tpu_torch/csrc/flash_attention_train.cu",
+                 "replaces": "f5tts_tpu/ops/pallas/flash_attention.py:387", "max_abs_err": max(err_o, err_lse),
+                 "ms": fwd_ms, "plain_ms": plain_fwd, "bound_ms": fb, "bound_by": fby, "library_ms": lib_fwd},
+                {"name": "flash_attention_train_bwd", "route": "cuda",
+                 "source": "f5tts_tpu_torch/csrc/flash_attention_train.cu",
+                 "replaces": "f5tts_tpu/ops/pallas/flash_attention.py:401", "max_abs_err": max(errs),
+                 "ms": bwd_ms, "plain_ms": plain_bwd, "bound_ms": bb, "bound_by": bby, "library_ms": lib_bwd},
+            ]
+        del q, k, v, do, o, lse, dq, dk, dv, qs, ks, vs, out
+        torch.cuda.empty_cache()
+    return rows
+
+
+def train_grad_parity(dev, tok) -> None:
+    """One step's gradients through the kernels (bf16) against the fp32 plain
+    path, same params, batch and draws, on a small geometry."""
+    import dataclasses
+
+    from f5tts_tpu_torch.models.cfm import CFMConfig, cfm_draws, cfm_loss
+    from f5tts_tpu_torch.models.dit import DiTConfig
+    from f5tts_tpu_torch.train.data import synthetic_packed_batch
+    from f5tts_tpu_torch.train.trainer import TrainConfig, init_train_state
+    from f5tts_tpu_torch.train.tree import tree_leaves
+
+    small = DiTConfig(dim=256, depth=2, heads=4, dim_head=64, text_num_embeds=tok.vocab_size, text_dim=128,
+                      conv_layers=1)
+    batch = synthetic_packed_batch(small, 256, 4, seed=5)
+    mel, text, lens = (torch.as_tensor(batch[k], device=dev) for k in ("mel", "text", "lens"))
+    cfg_k = CFMConfig(model=small)
+    draws = cfm_draws(torch.Generator(device=dev).manual_seed(6), lens, 256, small.mel_dim, cfg_k)
+    grads = []
+    for cfg, dtype in ((cfg_k, torch.bfloat16),
+                       (CFMConfig(model=dataclasses.replace(small, attn_impl="plain", conv_pos_impl="plain")),
+                        torch.float32)):
+        params = init_train_state(cfg, TrainConfig(), dev)["params"]
+        loss, _ = cfm_loss(params, cfg, draws, mel, text, lens, dtype)
+        loss.backward()
+        grads.append({name: t.grad.float() for name, t in tree_leaves(params)})
+    num = sum(float(torch.sum((grads[0][k] - grads[1][k]) ** 2)) for k in grads[1])
+    den = sum(float(torch.sum(grads[1][k] ** 2)) for k in grads[1])
+    rel = (num / den) ** 0.5
+    worst = max(grads[1], key=lambda k: float(torch.linalg.vector_norm(grads[0][k] - grads[1][k]))
+                / max(float(torch.linalg.vector_norm(grads[1][k])), 1e-30))
+    wrel = float(torch.linalg.vector_norm(grads[0][worst] - grads[1][worst]) / torch.linalg.vector_norm(grads[1][worst]))
+    log(f"train gradient parity (dim 256, depth 2, 4 x 64 heads, 4 x 256 frames, dropout 0.1 with the same seeds): "
+        f"kernels bf16 vs plain fp32, relative L2 over all leaves {rel:.4e} (tol {TRAIN_GRAD_RTOL}); "
+        f"worst leaf {worst} {wrel:.4e}")
+    check(np.isfinite(rel) and rel <= TRAIN_GRAD_RTOL, f"train gradients diverged from the plain path: {rel}")
+
+
+def profile_step(step) -> None:
+    """Device time of one train step by kernel family (``torch.profiler``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    families = (("flash_attention_train_fwd", ("fwd_lse",)), ("flash_attention_train_bwd", ("bwd_dkdv", "bwd_dq")),
+                ("conv_pos", ("conv_wmma", "conv_generic")), ("gemm", ("gemm", "cutlass", "xmma", "nvjet")),
+                ("reduction", ("reduce_kernel",)), ("elementwise", ("elementwise", "vectorized", "unrolled")))
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    sums: dict[str, float] = {}
+    for e in kernels:
+        fam = next((f for f, keys in families if any(key in e.key for key in keys)), "other")
+        sums[fam] = sums.get(fam, 0.0) + e.self_device_time_total / 1e3
+    busy = sum(sums.values())
+    log(f"profile of one train step: wall {wall_ms:.1f} ms (profiler on), kernels {busy:.1f} ms "
+        f"= {100 * busy / wall_ms:.1f}% busy, {100 - 100 * busy / wall_ms:.1f}% idle")
+    for fam, ms in sorted(sums.items(), key=lambda kv: -kv[1]):
+        log(f"  {fam}: {ms:.1f} ms ({100 * ms / busy:.1f}% of kernel time)")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"  kernel {e.key[:80]!r}: {e.self_device_time_total / 1e3:.1f} ms, {e.count} launches")
+
+
+TRAIN_SHAPES = ((37, 1024), (12, 3072), (37, 1024), (37, 1024), (37, 1024))  # (rows, frames) per step
+
+
+def train_phase(dev, model, shapes, tok, card: str, launches: dict) -> None:
+    from f5tts_tpu_torch.models.cfm import CFMConfig
+    from f5tts_tpu_torch.ops.kernels.conv_pos import conv_pos
+    from f5tts_tpu_torch.ops.kernels.flash_attention import flash_attention
+    from f5tts_tpu_torch.ops.kernels.flash_attention_train import flash_attention_train_fwd, flash_attention_train_bwd
+    from f5tts_tpu_torch.train.data import synthetic_packed_batch
+    from f5tts_tpu_torch.train.trainer import TrainConfig, Trainer
+    from f5tts_tpu_torch.train.tree import tree_leaves
+
+    train_grad_parity(dev, tok)
+    # warmup 2 updates: the first update uses schedule(0) = 0 (optax's count), the later ones move the params
+    trainer = Trainer(CFMConfig(model=model), TrainConfig(warmup_updates=2), compute_dtype=torch.bfloat16, device=dev)
+    t0 = time.perf_counter()
+    state, _ = trainer.init_or_resume()
+    log(f"train state (dim {model.dim}, depth {model.depth}, {sum(t.numel() for _, t in tree_leaves(state['params']))} "
+        f"params) in {time.perf_counter() - t0:.1f} s")
+    watch = {name: t.detach().clone() for name, t in tree_leaves(state["params"])}
+    batches = [synthetic_packed_batch(model, n, b, seed=i) for i, (b, n) in enumerate(shapes)]
+    per_step = {"flash_attention_train_fwd": 2 * model.depth, "flash_attention_train_bwd": 2 * model.depth,
+                "conv_pos": 2, "flash_attention": 0}
+    wrappers = {"flash_attention_train_fwd": flash_attention_train_fwd,
+                "flash_attention_train_bwd": flash_attention_train_bwd, "conv_pos": conv_pos,
+                "flash_attention": flash_attention}
+    for w in wrappers.values():
+        w.launches = 0
+    times = []
+    for i, batch in enumerate(batches):
+        before = {name: w.launches for name, w in wrappers.items()}
+        torch.cuda.synchronize()
+        t_step = time.perf_counter()
+        metrics = trainer.step(state, batch)
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t_step
+        times.append(dt)
+        frames = int(batch["lens"].sum())
+        counts = {name: w.launches - before[name] for name, w in wrappers.items()}
+        log(f"train step {i + 1} ({batch['mel'].shape[0]} x {batch['mel'].shape[1]}, {frames} mel frames): "
+            f"loss {loss:.4f}, grad norm {gnorm:.4f}, {dt:.3f} s = {frames / dt:.0f} mel-frames/s; launches {counts}")
+        check(np.isfinite(loss) and np.isfinite(gnorm), f"train step {i + 1}: loss {loss}, grad norm {gnorm}")
+        check(counts == per_step, f"train step {i + 1}: launches {counts}, want {per_step}")
+    for name in ("flash_attention_train_fwd", "flash_attention_train_bwd", "conv_pos"):
+        launches[name]["train"] = wrappers[name].launches
+    moved = sum(not torch.equal(watch[name], t.detach()) for name, t in tree_leaves(state["params"]))
+    log(f"params: {moved} of {len(watch)} leaves changed over {len(batches)} updates")
+    check(moved == len(watch), "some parameter leaves did not change")
+    first = shapes[0]
+    steady = [t for shape, t in zip(shapes, times) if shape == first][1:]  # the first step warms up
+    med = statistics.median(steady)
+    frames = statistics.mean(int(b["lens"].sum()) for b, shape in zip(batches, shapes) if shape == first)
+    log(f"train throughput on {card}: dim {model.dim} depth {model.depth}, bf16, {first[0]} x {first[1]} "
+        f"frame-packed batches: step s {[round(t, 4) for t in steady]}, median {med:.4f} s, {frames / med:.0f} "
+        f"mel-frames/s ({first[0] * first[1] / med:.0f} padded frames/s); other steps "
+        f"{[(shape, round(t, 4)) for shape, t in zip(shapes, times) if shape != first]}")
+    profile_step(lambda: trainer.step(state, batches[2]))
+    del state, trainer
+    torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--kernels-only", action="store_true", help="build and check the kernels, skip the engine")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="build and check the kernels, skip the engine, bench and training phases")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
@@ -387,8 +602,8 @@ def main():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"  [{name}] {line.strip()}")
 
-    kernels = [attention_phase(dev), conv_phase(dev)]
-    launches = {k["name"]: 0 for k in kernels}
+    kernels = [attention_phase(dev), conv_phase(dev), *train_kernel_phase(dev)]
+    launches = {k["name"]: {} for k in kernels}  # kernel -> path -> launches, each path's counts set to 0 before it
     if not args.kernels_only:
         from f5tts_tpu_torch.models.convert import init_dit_numpy, init_vocos_numpy
         from f5tts_tpu_torch.models.dit import DiTConfig
@@ -400,12 +615,15 @@ def main():
         dit_np, voc_np = init_dit_numpy(dit_cfg, seed=0), init_vocos_numpy(voc_cfg, seed=1)
         engine_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, launches)
         bench_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card)
+        del dit_np, voc_np
+        train_phase(dev, dit_cfg, TRAIN_SHAPES, tok, card, launches)  # F5-TTS Base, dropout 0.1, kernels
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches_by_path"] = launches[k["name"]]
+        k["launches"] = sum(launches[k["name"]].values())
     log(card_line())
     log(json.dumps({"kernels": [{key: k[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-        "bound_by", "library_ms")} for k in kernels]}))
+        "bound_by", "library_ms", "launches_by_path")} for k in kernels]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
 

@@ -39,9 +39,18 @@
 
 #include <type_traits>
 
+#include "attention.cuh"
 #include "common.cuh"
 
+using f5::cp_async16;
+using f5::cp_async_commit;
+using f5::cp_async_wait_one;
 using f5::from_f;
+using f5::ld32;
+using f5::load_a;
+using f5::mma16816;
+using f5::mma_a_by_rows;
+using f5::pack_bf16;
 using f5::rnd;
 using f5::to_f;
 using bf16 = __nv_bfloat16;
@@ -68,34 +77,13 @@ __device__ __forceinline__ T load_rot(const T* row, int j, const float* cos_row,
     return from_f<T>(a + b);
 }
 
-// Additive bias of keys [k0, k0 + BK): 0 valid, -1e30 masked, -inf past n
-// (keys past n contribute exactly nothing).
 __device__ __forceinline__ void stage_bias(float* bias, const uint8_t* key_mask, int b, int n, int k0, int tid) {
-    for (int j = tid; j < BK; j += NTHREADS) {
-        const int key = k0 + j;
-        bias[j] = key >= n ? -INFINITY : (key_mask != nullptr && !key_mask[(size_t)b * n + key] ? NEG_BIG : 0.0f);
-    }
+    f5::stage_key_bias<BK, NTHREADS>(bias, key_mask, b, n, k0, tid);
 }
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores (mma.sync m16n8k16), FlashAttention-2 register layout
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) { return *reinterpret_cast<const uint32_t*>(p); }
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d (16x8 fp32) += a (16x16 bf16, row) . b (16x8 bf16, col)
-__device__ __forceinline__ void mma16816(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // Rows [row0, row0 + R) of an (n, D) bf16 matrix into dst (row stride LD),
 // zero past n, rotated when `rot`; 16-byte vectors.
@@ -120,26 +108,6 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, int row0,
         }
         *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
     }
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global -> shared copy that bypasses registers; zero-fills when !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-                 "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::); }
-
-// Four transposed 8x8 bf16 tiles from shared memory: lane i addresses row i%8
-// of tile i/8.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const bf16* p) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(smem_addr(p)));
 }
 
 template <int D>
@@ -194,13 +162,7 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
     __syncthreads();
     uint32_t qf[D / 16][4];  // this warp's 16 query rows as A fragments
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-        const bf16* p = Qs + (warp * 16 + g) * LD + kk * 16 + tq * 2;
-        qf[kk][0] = ld32(p);
-        qf[kk][1] = ld32(p + 8 * LD);
-        qf[kk][2] = ld32(p + 8);
-        qf[kk][3] = ld32(p + 8 * LD + 8);
-    }
+    for (int kk = 0; kk < D / 16; ++kk) load_a(qf[kk], Qs, LD, warp * 16, kk * 16, lane);
 
     // rows g and g + 8 of the warp's 16: running max, per-thread partial sum.
     // Scores are kept in log2 units (exp(x) = exp2(x * log2 e), one MUFU op),
@@ -282,13 +244,7 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
             const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
                                     pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                                     pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-            for (int nb = 0; nb < D / 8; nb += 2) {
-                uint32_t vf[4];
-                ldmatrix_x4_trans(vf, vb + (kk * 16 + (lane & 8) + (lane & 7)) * LD + (nb + (lane >> 4)) * 8);
-                mma16816(acc[nb], pa, vf[0], vf[1]);
-                mma16816(acc[nb + 1], pa, vf[2], vf[3]);
-            }
+            mma_a_by_rows<D>(acc, pa, vb, LD, kk * 16, lane);
         }
         __syncthreads();  // every warp is done with this buffer before it is refilled
     }

@@ -1,5 +1,7 @@
-"""Parameter trees: ``.npz`` files, numpy -> torch, seeded random init
-(counterpart of ``f5tts_tpu/models/convert.py:save_params_npz``/``load_params_npz``).
+"""Parameter trees: ``.npz`` files, numpy -> torch, seeded random init, and
+params of a model the port trained (counterpart of
+``f5tts_tpu/models/convert.py:save_params_npz``/``load_params_npz``/
+``load_trained_checkpoint``).
 
 The JAX package's parameter tree is nested dicts of arrays with the blocks
 stacked on a leading depth axis; ``f5tpu-convert`` writes it to one ``.npz``
@@ -47,6 +49,25 @@ def load_params_npz(path: str) -> dict:
                 node = node.setdefault(p, {})
             node[parts[-1]] = data[key]
     return out
+
+
+def load_trained_checkpoint(directory: str) -> dict:
+    """The EMA params (what is served) of the newest step of a checkpoint
+    directory written by the port's ``Trainer``, as a numpy tree that
+    ``TTSEngine`` takes as it is."""
+    from f5tts_tpu_torch.train.checkpoint import latest_step, restore_state
+    from f5tts_tpu_torch.train.tree import tree_map
+
+    step = latest_step(directory)
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint steps under {directory!r}")
+    return tree_map(lambda t: t.float().numpy(), restore_state(directory, step)["ema"])
+
+
+def export_trained_params(directory: str, path: str) -> None:
+    """A trained checkpoint's EMA params as the JAX package's ``.npz`` (what
+    ``f5tpu-convert`` writes and both ``load_params_npz`` read)."""
+    save_params_npz(path, load_trained_checkpoint(directory))
 
 
 def params_from_numpy(tree, device: torch.device | str, dtype: torch.dtype | None = None):

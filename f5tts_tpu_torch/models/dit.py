@@ -7,6 +7,9 @@
   embedding with residual;
 - ``depth`` DiT blocks (a Python loop over the stacked params' depth axis),
   RoPE, AdaLN-Zero final + Linear -> mel.
+- training (``dit_forward(training=True)``): the differentiable kernels,
+  dropout from per-block seeds, and each block under activation
+  checkpointing (the JAX package remats each scanned block).
 
 Parameters are the JAX tree: nested dicts of tensors, the blocks stacked
 with a leading depth axis (``models/convert.py:dit_params_from_numpy``).
@@ -16,7 +19,9 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from f5tts_tpu_torch.models import modules as m
 from f5tts_tpu_torch.ops.rope import precompute_freqs_cis, rotary_freqs
@@ -33,6 +38,7 @@ class DiTConfig:
     text_num_embeds: int = 256
     text_dim: int = 512
     conv_layers: int = 4
+    dropout: float = 0.1  # train-time attention/FF dropout (DiTBlock default)
     long_skip_connection: bool = False
     max_pos: int = 4096
     attn_impl: str = "flash"  # "flash" (kernel wrapper) | "plain"
@@ -54,6 +60,22 @@ def block(stacked, i: int):
     if isinstance(stacked, dict):
         return {k: block(v, i) for k, v in stacked.items()}
     return stacked[i]
+
+
+def unstack(stacked, depth: int) -> list:
+    """A stacked parameter tree as ``depth`` per-layer trees of views (one
+    ``unbind`` per leaf, so the backward stacks each leaf's gradient once)."""
+    if isinstance(stacked, dict):
+        parts = {k: unstack(v, depth) for k, v in stacked.items()}
+        return [{k: parts[k][i] for k in stacked} for i in range(depth)]
+    return list(torch.unbind(stacked, 0))
+
+
+def block_dropout_seeds(seed: int, depth: int) -> list[tuple[int, int]]:
+    """One (attention, feed-forward) dropout seed per block, derived from one
+    seed up front (the counterpart of splitting the dropout key per block)."""
+    seeds = np.random.default_rng(seed).integers(0, 2**62, size=(depth, 2))
+    return [(int(a), int(f)) for a, f in seeds]
 
 
 def stack_depth(stacked) -> int:
@@ -106,7 +128,14 @@ def dit_forward(
     mask: torch.Tensor | None = None,  # (b, n) bool
     text_emb: torch.Tensor | None = None,
     compute_dtype: torch.dtype = torch.float32,
+    training: bool = False,
+    dropout_seed: int | None = None,  # training: enables cfg.dropout
 ) -> torch.Tensor:
+    """The DiT's velocity prediction. With ``training``, attention takes the
+    differentiable kernels (whatever ``cfg.dropout`` is), dropout draws from
+    per-block seeds derived from ``dropout_seed``, and each block runs under
+    ``torch.utils.checkpoint``: its activations are recomputed in the backward
+    instead of stored, and its dropout masks with them."""
     b, n, _ = x.shape
     if time.ndim == 0:
         time = time.expand(b)
@@ -117,11 +146,22 @@ def dit_forward(
                     drop_audio_cond, mask, conv_pos_impl=cfg.conv_pos_impl)
     freqs = torch.as_tensor(rotary_freqs(n, cfg.dim_head), device=x.device)
     residual = h
-    for i in range(stack_depth(params["blocks"])):
-        h = m.dit_block(block(params["blocks"], i), h, t, cfg.heads, freqs, mask,
-                        impl=cfg.attn_impl, rope_all_heads=cfg.rope_all_heads)
+    depth = stack_depth(params["blocks"])
+    if training:
+        seeds = (block_dropout_seeds(dropout_seed, depth) if dropout_seed is not None and cfg.dropout > 0.0
+                 else [None] * depth)
+        for blk, blk_seeds in zip(unstack(params["blocks"], depth), seeds):
+            def run(h_in, blk=blk, blk_seeds=blk_seeds):
+                return m.dit_block(blk, h_in, t, cfg.heads, freqs, mask, impl=cfg.attn_impl,
+                                   rope_all_heads=cfg.rope_all_heads, training=True, dropout_seeds=blk_seeds,
+                                   dropout_rate=cfg.dropout)
+
+            h = checkpoint(run, h, use_reentrant=False, preserve_rng_state=False)
+    else:
+        for i in range(depth):
+            h = m.dit_block(block(params["blocks"], i), h, t, cfg.heads, freqs, mask,
+                            impl=cfg.attn_impl, rope_all_heads=cfg.rope_all_heads)
     if cfg.long_skip_connection:
         h = m.linear(params["long_skip"], torch.cat([h, residual], dim=-1))
     h = m.adaln_zero_final(params["norm_out"], h, t)
     return m.linear(params["proj_out"], h)
-

@@ -10,6 +10,13 @@ the GRN norm in fp32, the reference's head-0-only flat RoPE.
 ``attention(impl="flash")`` and ``conv_pos_embedding(impl="fused")`` go
 through the kernel wrappers (CUDA kernel on a GPU tensor, plain version on a
 CPU tensor); ``impl="plain"`` calls the plain versions on any device.
+
+Training mode (``attention(training=True)``, ``dit_block(training=True)``)
+takes the differentiable kernels: RoPE on q/k in PyTorch, then
+``flash_attention_train``; the conv-pos pair without a mask is
+``conv_pos_train``. Dropout is inverted dropout drawn from a generator seeded
+inside the layer from an explicit seed, so re-running a block (activation
+checkpointing) draws the same masks.
 """
 
 from __future__ import annotations
@@ -20,8 +27,9 @@ import torch
 import torch.nn.functional as F
 
 from f5tts_tpu_torch.ops.attention import sdpa
-from f5tts_tpu_torch.ops.kernels.conv_pos import conv_pos, conv_pos_plain, mish  # noqa: F401 (mish: layer API)
+from f5tts_tpu_torch.ops.kernels.conv_pos import conv_pos, conv_pos_plain, conv_pos_train, mish  # noqa: F401 (mish: layer API)
 from f5tts_tpu_torch.ops.kernels.flash_attention import flash_attention
+from f5tts_tpu_torch.ops.kernels.flash_attention_train import flash_attention_train
 from f5tts_tpu_torch.ops.rope import apply_rotary, apply_rotary_per_head
 
 
@@ -107,9 +115,12 @@ def conv_pos_embedding(p, x, mask=None, kernel_size: int = 31, groups: int = 16,
         raise ValueError(f"conv_pos kernel width {p['conv1']['w'].shape[0]} != {kernel_size}")
     if mask is not None:
         x = _where_rows(mask, x)
+    weights = (p["conv1"]["w"], p["conv1"]["b"], p["conv2"]["w"], p["conv2"]["b"])
+    if impl == "fused" and mask is None:  # full rows (training): the differentiable kernel pair
+        return conv_pos_train(x, *weights, groups)
     lens = mask.sum(-1).to(torch.int32) if mask is not None else None
     fn = {"fused": conv_pos, "plain": conv_pos_plain}[impl]
-    y = fn(x, p["conv1"]["w"], p["conv1"]["b"], p["conv2"]["w"], p["conv2"]["b"], lens, groups)
+    y = fn(x, *weights, lens, groups)
     if mask is not None:
         y = _where_rows(mask, y)
     return y
@@ -168,14 +179,36 @@ def adaln_zero_final(p, x, emb):
 # ---------------------------------------------------------------------------
 
 
-def feed_forward(p, x):
-    return linear(p["out"], F.gelu(linear(p["in"], x), approximate="tanh"))
+def dropout(x, seed: int, rate: float):
+    """Inverted dropout with masks drawn from a fresh generator seeded with
+    ``seed`` (train time only): the same seed gives the same mask, so a
+    recomputed block matches."""
+    keep = 1.0 - rate
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device)).to(x.dtype)
 
 
-def attention(p, x, heads: int, rope_freqs=None, mask=None, impl: str = "flash", rope_all_heads: bool = False):
+def feed_forward(p, x, dropout_seed: int | None = None, dropout_rate: float = 0.0):
+    h = F.gelu(linear(p["in"], x), approximate="tanh")
+    if dropout_seed is not None and dropout_rate > 0.0:
+        h = dropout(h, dropout_seed, dropout_rate)  # Sequential(Linear+GELU, Dropout, Linear)
+    return linear(p["out"], h)
+
+
+def _rope_heads(t, rope_freqs, rope_all_heads: bool):
+    """RoPE on ``(b, h, n, d)``: every head, or head 0 only (the flat-RoPE quirk)."""
+    if rope_all_heads:
+        return apply_rotary_per_head(t, rope_freqs)
+    return torch.cat([apply_rotary_per_head(t[:, :1], rope_freqs), t[:, 1:]], 1)
+
+
+def attention(p, x, heads: int, rope_freqs=None, mask=None, impl: str = "flash", rope_all_heads: bool = False,
+              training: bool = False, dropout_seed: int | None = None, dropout_rate: float = 0.0):
     """Self-attention with the reference's flat-RoPE quirk. ``impl='flash'``
-    takes the kernel wrapper with the RoPE fused in; ``'plain'`` applies RoPE
-    on the flat projection (head 0) or per head, then ``sdpa``."""
+    takes the kernel wrapper with the RoPE fused in (serving) or, with
+    ``training``, RoPE in PyTorch and the differentiable kernels; ``'plain'``
+    applies RoPE on the flat projection (head 0) or per head, then ``sdpa``."""
     b, n, _ = x.shape
     q = linear(p["to_q"], x)
     k = linear(p["to_k"], x)
@@ -188,7 +221,11 @@ def attention(p, x, heads: int, rope_freqs=None, mask=None, impl: str = "flash",
         return t.reshape(b, n, heads, -1).transpose(1, 2).contiguous()
 
     q, k, v = split_heads(q), split_heads(k), split_heads(v)
-    if impl == "flash":
+    if impl == "flash" and training:
+        if rope_freqs is not None:
+            q, k = _rope_heads(q, rope_freqs, rope_all_heads), _rope_heads(k, rope_freqs, rope_all_heads)
+        o = flash_attention_train(q, k, v, mask)
+    elif impl == "flash":
         o = flash_attention(q, k, v, mask, rope_freqs=rope_freqs, rope_all_heads=rope_all_heads)
     elif impl == "plain":
         if rope_freqs is not None and rope_all_heads:
@@ -198,13 +235,19 @@ def attention(p, x, heads: int, rope_freqs=None, mask=None, impl: str = "flash",
     else:
         raise ValueError(f"unknown attention impl {impl!r}")
     o = linear(p["to_out"], o.transpose(1, 2).reshape(b, n, -1))
+    if dropout_seed is not None and dropout_rate > 0.0:
+        o = dropout(o, dropout_seed, dropout_rate)  # to_out = [Linear, Dropout]
     if mask is not None:
         o = _where_rows(mask, o)
     return o
 
 
-def dit_block(p, x, t_emb, heads: int, rope_freqs=None, mask=None, impl: str = "flash", rope_all_heads: bool = False):
+def dit_block(p, x, t_emb, heads: int, rope_freqs=None, mask=None, impl: str = "flash", rope_all_heads: bool = False,
+              training: bool = False, dropout_seeds: tuple[int, int] | None = None, dropout_rate: float = 0.0):
+    """One DiT block; ``dropout_seeds`` = (attention seed, feed-forward seed)."""
+    attn_seed, ff_seed = dropout_seeds if dropout_seeds is not None else (None, None)
     norm, gate_msa, shift_mlp, scale_mlp, gate_mlp = adaln_zero(p["attn_norm"], x, t_emb)
-    x = x + gate_msa[:, None] * attention(p["attn"], norm, heads, rope_freqs, mask, impl, rope_all_heads)
+    x = x + gate_msa[:, None] * attention(p["attn"], norm, heads, rope_freqs, mask, impl, rope_all_heads,
+                                          training, attn_seed, dropout_rate)
     norm = layer_norm(x) * (1 + scale_mlp[:, None]) + shift_mlp[:, None]
-    return x + gate_mlp[:, None] * feed_forward(p["ff"], norm)
+    return x + gate_mlp[:, None] * feed_forward(p["ff"], norm, ff_seed, dropout_rate)

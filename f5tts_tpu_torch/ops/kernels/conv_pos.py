@@ -85,11 +85,15 @@ def conv_pos(x, w1, b1, w2, b2, lens=None, groups: int = 16):
     """``mish(conv2(mask_lens(mish(conv1(x) + b1))) + b2)`` on ``x (b, n, c)``;
     ``lens (b,)`` int valid prefix per row (None = every row full). CPU
     tensors take the plain version; CUDA tensors launch the kernel (twice:
-    one launch per layer) or raise."""
+    one launch per layer) or raise. A CUDA input that requires grad (with grad
+    enabled) raises: ``conv_pos_train`` is the differentiable form."""
     if x.device.type == "cpu":
         return conv_pos_plain(x, w1, b1, w2, b2, lens, groups)
     if x.device.type != "cuda":
         raise ValueError(f"conv_pos runs on cuda (kernel) or cpu (plain), got {x.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w1, b1, w2, b2)):
+        raise RuntimeError("conv_pos has no backward kernel; differentiate through conv_pos_train "
+                           "(or run under torch.no_grad())")
     if x.ndim != 3 or x.dtype not in _DTYPES or not x.is_contiguous():
         raise ValueError(f"conv_pos takes a contiguous bf16/fp32 (b, n, c) tensor, got {x.dtype} {tuple(x.shape)}")
     if x.shape[0] > 65535:
@@ -109,3 +113,28 @@ def conv_pos(x, w1, b1, w2, b2, lens=None, groups: int = 16):
 
 
 conv_pos.launches = 0
+
+
+class ConvPosTrain(torch.autograd.Function):
+    """Forward through the kernel pair (``conv_pos``), backward by
+    differentiating the plain formulation (the counterpart of the JAX
+    package's ``_conv_pos_fused`` custom VJP; there is no backward kernel).
+    Every row is full length (training passes no mask)."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, groups):
+        ctx.groups = groups
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        return conv_pos(x, w1, b1, w2, b2, None, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            y = conv_pos_plain(*inputs, None, ctx.groups)
+        return (*torch.autograd.grad(y, inputs, g), None)
+
+
+def conv_pos_train(x, w1, b1, w2, b2, groups: int = 16):
+    """Differentiable ``conv_pos`` over full-length rows."""
+    return ConvPosTrain.apply(x, w1, b1, w2, b2, groups)

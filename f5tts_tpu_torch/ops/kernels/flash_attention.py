@@ -68,11 +68,15 @@ def _check(q, k, v, key_mask, rope_freqs):
 def flash_attention(q, k, v, key_mask=None, rope_freqs=None, rope_all_heads: bool = False):
     """``(b, h, n, d)`` attention; ``key_mask (b, n)`` bool (True = valid key),
     ``rope_freqs (n, d)`` fp32 angles or None. CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise."""
+    version; CUDA tensors launch the kernel or raise. The kernel has no
+    backward: a CUDA input that requires grad (with grad enabled) raises."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, key_mask, rope_freqs, rope_all_heads)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda (kernel) or cpu (plain), got {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention is the serving kernel and has no backward; differentiate through "
+                           "ops.kernels.flash_attention_train.flash_attention_train (or run under torch.no_grad())")
     _check(q, k, v, key_mask, rope_freqs)
     b, h, n, d = q.shape
     lib = _lib()

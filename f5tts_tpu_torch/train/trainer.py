@@ -1,0 +1,258 @@
+"""Flow-matching trainer on one device (counterpart of
+``f5tts_tpu/train/trainer.py``).
+
+AdamW with optax's semantics, written out over the params tree:
+- the schedule (linear warmup 0 -> lr, then linear decay to 0) is read at the
+  optimizer's update count *before* it is incremented, so the first update
+  uses ``schedule(0) = 0`` (a ``LambdaLR`` stepping after the update would be
+  one step ahead);
+- ``clip_by_global_norm``: ``g / norm * max_norm`` when ``norm >= max_norm``,
+  with no ``+ 1e-6`` in the denominator (``clip_grad_norm_`` adds one);
+- Adam moments with bias correction, ``eps`` added to ``sqrt(v_hat)``, decoupled
+  weight decay on every leaf, ``p += -lr * update``.
+Gradient accumulation averages micro-batch gradients with their weights (0
+for the empty micro-batches that pad a trailing group). The EMA updates after
+each step. Params, moments and EMA are fp32; the forward runs in
+``compute_dtype``. The optimizer updates the tensors in place.
+
+Adafactor, the mesh (data/tensor parallel) and the sample hook are not ported.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from f5tts_tpu_torch.models.cfm import CFMConfig, cfm_draws, cfm_loss
+from f5tts_tpu_torch.train.ema import EMAConfig, ema_init, ema_update
+from f5tts_tpu_torch.train.tree import tree_leaves, tree_map
+from f5tts_tpu_torch.utils.device import resolve_device
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 7.5e-5
+    warmup_updates: int = 20_000
+    total_updates: int = 1_200_000
+    grad_clip: float = 1.0
+    weight_decay: float = 0.01
+    max_grad_accum: int = 1
+    ema: EMAConfig = field(default_factory=EMAConfig)
+    seed: int = 0
+
+
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adamw's (the JAX trainer's) values
+
+
+def lr_schedule(cfg: TrainConfig):
+    """``count -> lr`` (fp32): linear warmup 0 -> lr over ``warmup_updates``,
+    then linear decay lr -> 0 until ``total_updates`` (optax's
+    ``join_schedules`` of two ``linear_schedule``s)."""
+    decay_steps = max(cfg.total_updates - cfg.warmup_updates, 1)
+
+    def linear(init: float, end: float, steps: int, count: int) -> np.float32:
+        if steps <= 0:
+            return np.float32(init)
+        frac = np.float32(1.0) - np.float32(min(max(count, 0), steps)) / np.float32(steps)
+        return np.float32(init - end) * frac + np.float32(end)
+
+    def schedule(count: int) -> np.float32:
+        if count < cfg.warmup_updates:
+            return linear(0.0, cfg.learning_rate, cfg.warmup_updates, count)
+        return linear(cfg.learning_rate, 0.0, decay_steps, count - cfg.warmup_updates)
+
+    return schedule
+
+
+def global_norm(tensors) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tensors))
+
+
+@torch.no_grad()
+def adamw_update(params, grads: list[torch.Tensor], opt_state: dict, cfg: TrainConfig) -> None:
+    """Clip ``grads`` by their global norm, then one AdamW update of the
+    params tree, all in place. ``grads`` follow ``tree_leaves(params)``."""
+    norm = global_norm(grads)
+    keep = norm < cfg.grad_clip
+    grads = [torch.where(keep, g, g / norm * cfg.grad_clip) for g in grads]
+    lr = lr_schedule(cfg)(opt_state["count"])
+    count = opt_state["count"] + 1
+    bc1 = float(np.float32(1.0) - np.float32(ADAM_B1) ** np.float32(count))
+    bc2 = float(np.float32(1.0) - np.float32(ADAM_B2) ** np.float32(count))
+    leaves = tree_leaves(params)
+    for (_, p), g, (_, mu), (_, nu) in zip(leaves, grads, tree_leaves(opt_state["mu"]), tree_leaves(opt_state["nu"])):
+        mu.mul_(ADAM_B1).add_(g, alpha=1 - ADAM_B1)
+        nu.mul_(ADAM_B2).addcmul_(g, g, value=1 - ADAM_B2)
+        update = (mu / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS)
+        update.add_(p, alpha=cfg.weight_decay)
+        p.add_(update, alpha=-float(lr))
+    opt_state["count"] = count
+
+
+def init_train_state(model_cfg: CFMConfig, train_cfg: TrainConfig, device, params_np: dict | None = None) -> dict:
+    """Fresh train state: fp32 params (a copy of ``params_np``, e.g. JAX params
+    as numpy, or a seeded ``init_dit_numpy``) that require grad, zero Adam
+    moments, an EMA copy, step 0."""
+    from f5tts_tpu_torch.models.convert import dit_params_from_numpy, init_dit_numpy
+
+    tree = params_np if params_np is not None else init_dit_numpy(model_cfg.model, seed=train_cfg.seed)
+    params = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                      dit_params_from_numpy(tree, device, torch.float32))
+    return {
+        "params": params,
+        "opt_state": {"mu": tree_map(torch.zeros_like, params), "nu": tree_map(torch.zeros_like, params), "count": 0},
+        "ema": ema_init(params),
+        "step": 0,
+    }
+
+
+def _micro_batches(batch: dict) -> list[tuple]:
+    """``(mel, text, lens, weight)`` per micro-batch: one for a plain batch,
+    ``accum`` for a batch with a leading accumulation axis."""
+    if batch["mel"].ndim == 3:
+        return [(batch["mel"], batch["text"], batch["lens"], 1.0)]
+    weights = batch.get("micro_weight")
+    weights = [1.0] * batch["mel"].shape[0] if weights is None else [float(w) for w in weights]
+    return [(batch["mel"][i], batch["text"][i], batch["lens"][i], weights[i]) for i in range(len(weights))]
+
+
+def train_step(state: dict, batch: dict, draws: list, model_cfg: CFMConfig, train_cfg: TrainConfig,
+               compute_dtype: torch.dtype = torch.bfloat16) -> dict:
+    """One optimizer update on ``batch`` (tensors on the params' device, with
+    an optional leading accumulation axis and ``micro_weight``); ``draws``
+    holds one ``CFMDraws`` per micro-batch. Updates ``state`` in place and
+    returns the step's metrics as 0-d tensors (loss and aux averaged over the
+    weighted micro-batches, the pre-clip gradient norm)."""
+    params = state["params"]
+    leaves = [t for _, t in tree_leaves(params)]
+    for t in leaves:
+        t.grad = None
+    micro = _micro_batches(batch)
+    wsum = max(sum(w for *_, w in micro), 1.0)
+    loss_sum, aux_sum = 0.0, {}
+    for (mel, text, lens, w), d in zip(micro, draws):
+        if w == 0.0:  # an empty pad micro-batch: weight 0 in every average
+            continue
+        loss, aux = cfm_loss(params, model_cfg, d, mel, text, lens, compute_dtype)
+        (loss * (w / wsum)).backward()
+        loss_sum = loss_sum + w * loss.detach()
+        for k, v in aux.items():
+            aux_sum[k] = aux_sum.get(k, 0.0) + w * v.detach().float()
+    grads = [t.grad if t.grad is not None else torch.zeros_like(t) for t in leaves]
+    gnorm = global_norm(grads)
+    adamw_update(params, grads, state["opt_state"], train_cfg)
+    for t in leaves:
+        t.grad = None
+    state["step"] += 1
+    ema_update(state["ema"], params, state["step"], train_cfg.ema)
+    return {"loss": loss_sum / wsum, "grad_norm": gnorm, **{k: v / wsum for k, v in aux_sum.items()}}
+
+
+def group_micro_batches(batches, accum: int):
+    """Stack ``accum`` consecutive micro-batches along a leading axis, padding
+    each to the group's max (rows, frames, text); padded rows carry lens 0. A
+    trailing partial group is padded with empty (weight-0) micro-batches and
+    carries ``micro_weight``, so nothing is dropped."""
+    group = []
+
+    def emit(group):
+        real = len(group)
+        if real < accum:
+            empty = {
+                "mel": group[0]["mel"][:1] * 0.0,
+                "text": np.full_like(group[0]["text"][:1], -1),
+                "lens": np.zeros_like(group[0]["lens"][:1]),
+            }
+            group = group + [empty] * (accum - real)
+        mb = max(x["mel"].shape[0] for x in group)
+        mn = max(x["mel"].shape[1] for x in group)
+        mt = max(x["text"].shape[1] for x in group)
+        return {
+            "mel": np.stack([np.pad(x["mel"], ((0, mb - x["mel"].shape[0]), (0, mn - x["mel"].shape[1]), (0, 0)))
+                             for x in group]),
+            "text": np.stack([np.pad(x["text"], ((0, mb - x["text"].shape[0]), (0, mt - x["text"].shape[1])),
+                                     constant_values=-1) for x in group]),
+            "lens": np.stack([np.pad(x["lens"], (0, mb - x["lens"].shape[0])) for x in group]),
+            "micro_weight": (np.arange(accum) < real).astype(np.float32),
+        }
+
+    for b in batches:
+        group.append(b)
+        if len(group) == accum:
+            yield emit(group)
+            group = []
+    if group:
+        yield emit(group)
+
+
+class Trainer:
+    """Host-side training loop on one device: numpy batches in, metrics and
+    checkpoints out."""
+
+    def __init__(self, model_cfg: CFMConfig, train_cfg: TrainConfig = TrainConfig(),
+                 compute_dtype: torch.dtype = torch.bfloat16, checkpoint_dir: str | None = None,
+                 log_every: int = 50, save_every: int = 10_000, logger=None, device=None):
+        self.model_cfg = model_cfg
+        self.train_cfg = train_cfg
+        self.compute_dtype = compute_dtype
+        self.checkpoint_dir = checkpoint_dir
+        self.log_every = log_every
+        self.save_every = save_every
+        self.logger = logger
+        self.device = resolve_device(device)
+        self.generator = torch.Generator(device=self.device).manual_seed(train_cfg.seed + 1)
+
+    def init_or_resume(self) -> tuple[dict, int]:
+        """A fresh state (params from ``init_dit_numpy`` with the config's
+        seed), or the newest readable checkpoint's (a torn newest step falls
+        back to the previous one)."""
+        if self.checkpoint_dir:
+            from f5tts_tpu_torch.train.checkpoint import restore_latest
+
+            step, state = restore_latest(self.checkpoint_dir, self.device)
+            if step is not None:
+                state["params"] = tree_map(lambda t: t.requires_grad_(True), state["params"])
+                return state, int(step)
+        return init_train_state(self.model_cfg, self.train_cfg, self.device), 0
+
+    def _to_device(self, batch: dict) -> dict:
+        out = {k: torch.as_tensor(batch[k], device=self.device) for k in ("mel", "text", "lens")}
+        if "micro_weight" in batch:
+            out["micro_weight"] = batch["micro_weight"]
+        return out
+
+    def step(self, state: dict, batch: dict) -> dict:
+        """One update on a numpy batch, with draws from the trainer's generator."""
+        dev_batch = self._to_device(batch)
+        mel_dim = self.model_cfg.model.mel_dim
+        draws = [cfm_draws(self.generator, lens, mel.shape[1], mel_dim, self.model_cfg)
+                 for mel, _, lens, _ in _micro_batches(dev_batch)]
+        return train_step(state, dev_batch, draws, self.model_cfg, self.train_cfg, self.compute_dtype)
+
+    def fit(self, state: dict, batches, total_updates: int | None = None) -> dict:
+        """Train on an iterator of numpy batches (``mel``, ``text``, ``lens``);
+        with ``max_grad_accum > 1`` consecutive batches form one update. The
+        step counter is kept on the host; the log reads the loss only on
+        logging steps."""
+        if self.train_cfg.max_grad_accum > 1:
+            batches = group_micro_batches(batches, self.train_cfg.max_grad_accum)
+        t0 = time.perf_counter()
+        frames_done = 0
+        base_step = int(state["step"])
+        for i, batch in enumerate(batches):
+            if total_updates is not None and i >= total_updates:
+                break
+            metrics = self.step(state, batch)
+            frames_done += int(np.sum(batch["lens"]))
+            step_no = base_step + i + 1
+            if self.logger and step_no % self.log_every == 0:
+                self.logger(step=step_no, loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]),
+                            frames_per_s=frames_done / max(time.perf_counter() - t0, 1e-9))
+            if self.checkpoint_dir and step_no % self.save_every == 0:
+                from f5tts_tpu_torch.train.checkpoint import save_state
+
+                save_state(self.checkpoint_dir, step_no, state)
+        return state

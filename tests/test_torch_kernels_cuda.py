@@ -11,6 +11,7 @@ import torch
 
 from f5tts_tpu_torch.ops.kernels import conv_pos as t_conv
 from f5tts_tpu_torch.ops.kernels import flash_attention as t_flash
+from f5tts_tpu_torch.ops.kernels import flash_attention_train as t_train
 from f5tts_tpu_torch.ops.rope import rotary_freqs
 
 
@@ -59,3 +60,87 @@ def test_wrappers_raise_on_unsupported_inputs(dev):
     with pytest.raises(TypeError):
         h = torch.zeros((1, 2, 64, 64), device=dev, dtype=torch.float16)
         t_flash.flash_attention(h, h, h)
+
+
+def _train_inputs(dev, dtype, n, d, dead_row):
+    g = torch.Generator().manual_seed(2)
+    q, k, v, do = (torch.randn((2, 3, n, d), generator=g).to(dev, dtype) for _ in range(4))
+    mask = (torch.arange(n)[None] < torch.tensor([[n], [n - 37]])).to(dev)
+    if dead_row:
+        mask[1] = False  # every key of batch row 1 masked
+    return q, k, v, do, mask
+
+
+def _rel_err(out, ref):
+    """Max abs error over the reference's peak magnitude (at least 1)."""
+    return float((out.float() - ref.float()).abs().max()) / max(1.0, float(ref.float().abs().max()))
+
+
+# bf16 kernel vs fp32 plain on the same bf16 inputs: o and the gradients within
+# 2e-2 / 3e-2 of the peak (p and dS are rounded to bf16 in the kernel), lse
+# within 1e-3; fp32 kernel within 1e-4 (summation order only)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 3e-2), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("n,d,dead_row", [(256, 64, False), (200, 64, True), (130, 32, False), (96, 128, False)])
+def test_flash_train_kernels_match_plain(dev, dtype, tol, n, d, dead_row):
+    q, k, v, do, mask = _train_inputs(dev, dtype, n, d, dead_row)
+    f0, b0 = t_train.flash_attention_train_fwd.launches, t_train.flash_attention_train_bwd.launches
+    o, lse = t_train.flash_attention_train_fwd(q, k, v, mask)
+    dq, dk, dv = t_train.flash_attention_train_bwd(q, k, v, o, lse, do, mask)
+    torch.cuda.synchronize()
+    assert t_train.flash_attention_train_fwd.launches == f0 + 1
+    assert t_train.flash_attention_train_bwd.launches == b0 + 2  # dK/dV and dQ kernels
+    ref_o, ref_lse = t_train.flash_attention_train_fwd_plain(q.float(), k.float(), v.float(), mask)
+    assert _rel_err(o, ref_o) < (2e-2 if dtype == torch.bfloat16 else tol)
+    assert float((lse - ref_lse).abs().max()) < (1e-3 if dtype == torch.bfloat16 else 1e-4)
+    refs = t_train.flash_attention_train_bwd_plain(q.float(), k.float(), v.float(), ref_o, ref_lse, do.float(), mask)
+    for got, ref in zip((dq, dk, dv), refs):
+        assert bool(torch.isfinite(got).all())
+        assert _rel_err(got, ref) < tol
+
+
+@pytest.mark.cuda
+def test_flash_train_autograd_and_no_mask(dev):
+    q, k, v, do, _ = _train_inputs(dev, torch.bfloat16, 192, 64, False)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o = t_train.flash_attention_train(*leaves)
+    grads = torch.autograd.grad(o, leaves, do)
+    ref_o, ref_lse = t_train.flash_attention_train_fwd_plain(q.float(), k.float(), v.float())
+    refs = t_train.flash_attention_train_bwd_plain(q.float(), k.float(), v.float(), ref_o, ref_lse, do.float())
+    assert _rel_err(o.detach(), ref_o) < 2e-2
+    for got, ref in zip(grads, refs):
+        assert _rel_err(got, ref) < 3e-2
+
+
+@pytest.mark.cuda
+def test_conv_pos_train_gradients(dev):
+    g = torch.Generator().manual_seed(3)
+    x = (torch.randn((2, 96, 1024), generator=g) * 0.5).to(dev, torch.bfloat16).requires_grad_(True)
+    ws = [((torch.rand(s, generator=g) - 0.5) * 0.04).to(dev).requires_grad_(True)
+          for s in ((31, 64, 1024), (1024,), (31, 64, 1024), (1024,))]
+    before = t_conv.conv_pos.launches
+    y = t_conv.conv_pos_train(x, *ws)
+    assert t_conv.conv_pos.launches == before + 2
+    gy = torch.randn(y.shape, generator=g).to(dev, y.dtype)
+    grads = torch.autograd.grad(y, [x, *ws], gy)
+    ref_in = [t.detach().float().requires_grad_(True) for t in (x, *ws)]
+    ref_y = t_conv.conv_pos_plain(*ref_in)
+    ref_grads = torch.autograd.grad(ref_y, ref_in, gy.float())
+    assert _rel_err(y.detach(), ref_y.detach()) < 3e-2
+    for got, ref in zip(grads, ref_grads):
+        assert _rel_err(got, ref) < 5e-2
+
+
+@pytest.mark.cuda
+def test_serving_wrappers_raise_on_inputs_that_require_grad(dev):
+    q = torch.zeros((1, 2, 64, 64), device=dev, dtype=torch.bfloat16, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        t_flash.flash_attention(q, q, q)
+    x = torch.zeros((1, 64, 1024), device=dev, dtype=torch.bfloat16, requires_grad=True)
+    w = torch.zeros((31, 64, 1024), device=dev, dtype=torch.bfloat16)
+    b = torch.zeros((1024,), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="no backward"):
+        t_conv.conv_pos(x, w, b, w, b)
+    with torch.no_grad():  # inference on the same tensors is allowed
+        t_flash.flash_attention(q, q, q)
+        t_conv.conv_pos(x, w, b, w, b)
