@@ -5,8 +5,8 @@
 
 Phases, each of which fails the run (non-zero exit) on any error:
 
-1. build every CUDA kernel of the synthesis path from ``f5tts_tpu_torch/csrc``
-   (one ``nvcc`` per source, all started together);
+1. build every CUDA kernel of the port from ``f5tts_tpu_torch/csrc`` (one
+   ``nvcc`` per source, all started together);
 2. kernels: each kernel against its plain PyTorch version on the card at the
    main-path shapes (F5-TTS Base, fused CFG at batch 8: 16 rows of 1024
    frames), max abs error on valid rows against a stated tolerance, median
@@ -34,7 +34,27 @@ Phases, each of which fails the run (non-zero exit) on any error:
    launches), finite loss and gradient norm, params that move, step time and
    mel-frames/s, a profiler breakdown of one step; and one step's gradients
    through the kernels (bf16) against the fp32 plain path on a small
-   geometry.
+   geometry;
+7. decode attention (with phase 2): the decode-step attention kernel at the
+   shapes of one Parler decode position (16 heads of 64, bf16: batch 16
+   against a 503-position self-attention cache with a causal bound in the
+   middle and padded prompt keys, and against 64 encoder positions with a
+   ragged mask and a fully masked row), grouped-query cases, batch 1 and 32,
+   fp32, each against the fp32 plain version; device time per call in a CUDA
+   graph of 24 calls over cache sets that exceed the L2, beside the plain
+   version, SDPA and the bound from the bytes of K and V;
+8. Parler: ``ParlerTTSEngine`` at the width and depth of indic-parler-tts
+   (flan-t5-large encoder, 24-layer decoder over 9 codebooks, 44.1 kHz DAC;
+   random weights from seeds 0-2, bf16, a stand-in ``ord(c) % vocab``
+   tokenizer): three requests through ``ContinuousBatcher`` that share one
+   decode, the same burst again (description cache: the T5 must not run), one
+   streamed request whose segments equal the batch path's wave, and the
+   bench request (batch 16 x 430 frames, greedy, no EOS: audio-s/s and decode
+   steps/s, median of 3 after a warm call). Every call's decode-attention
+   launches must equal 2 x 24 x (frames + 8) and the F5 kernels' counts stay
+   0; a profiler breakdown of one bench call with the busy/idle share; and at
+   a small geometry the step logits of bf16 + kernel against fp32 + plain,
+   teacher-forced.
 
 The last lines are the card's name and power limit, one ``{"kernels": [...]}``
 JSON line and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -88,6 +108,28 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def time_graph_ms(calls, replays: int = 10) -> float:
+    """Median device time per call of a CUDA graph that holds every call of
+    ``calls`` once: the kernels run back to back with no host launch gap, which
+    is what a kernel of a few microseconds needs to be timed at all."""
+    for c in calls[:3]:
+        c()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        keep = [c() for c in calls]  # outputs stay alive in the graph's pool
+    times = []
+    for _ in range(replays):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    del keep, graph
+    return statistics.median(times) / len(calls)
 
 
 def bound_ms(flops: float, nbytes: float, peak_flops: float) -> tuple[float, str]:
@@ -215,6 +257,111 @@ def conv_phase(dev) -> dict:
             "plain_ms": ms_plain, "bound_ms": bms, "bound_by": by, "library_ms": ms_lib}
 
 
+
+def _decode_inputs(dev, dtype, b, h, n_kv, total, d, seed, *, bound=None, pad_row=None, dead_row=None, ragged=False):
+    """q (pre-scaled), K/V caches and the additive bias of one decode step.
+    ``bound``: positions past it are banned and hold zeros, as in a cache that
+    is filled up to there; ``pad_row``: a row whose first 20 keys are padding;
+    ``ragged``: per-row valid prefixes (an encoder mask); ``dead_row``: a row
+    with every position banned."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = (torch.randn((b, h, 1, d), generator=g) * d**-0.5).to(dev, dtype)
+    k, v = (torch.randn((b, n_kv, total, d), generator=g).to(dev, dtype) for _ in range(2))
+    allowed = torch.ones((b, total), dtype=torch.bool)
+    if bound is not None:
+        allowed[:, bound + 1:] = False
+        k[:, :, bound + 1:] = 0
+        v[:, :, bound + 1:] = 0
+    if ragged:
+        lens = torch.randint(1, total + 1, (b,), generator=g)
+        lens[0] = total
+        allowed &= torch.arange(total)[None, :] < lens[:, None]
+    if pad_row is not None:
+        allowed[pad_row, :20] = False
+    if dead_row is not None:
+        allowed[dead_row] = False
+    bias = torch.where(allowed, 0.0, -1e9).to(dev, torch.float32)
+    return q, k, v, bias
+
+
+def decode_attention_phase(dev) -> dict:
+    """The decode-step attention kernel at the shapes of one Parler decode
+    position (indic-parler-tts: 16 heads of 64; batch 16; 64 prompt + 1 + 438
+    positions of self-attention cache, 64 encoder positions of cross-attention)."""
+    from f5tts_tpu_torch.ops.kernels.decode_attention import decode_attention, decode_attention_plain
+
+    def err_of(q, k, v, bias):
+        out = decode_attention(q, k, v, bias)
+        torch.cuda.synchronize()
+        ref = decode_attention_plain(q.float(), k.float(), v.float(), bias)
+        check(out.shape == q.shape and out.dtype == q.dtype, "decode_attention output shape/dtype")
+        return float((out.float() - ref).abs().max())
+
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = (  # name, dtype, b, h, n_kv, total, d, options
+        ("self b16", bf, 16, 16, 16, 503, 64, dict(bound=300, pad_row=3)),
+        ("cross b16", bf, 16, 16, 16, 64, 64, dict(ragged=True, dead_row=5)),
+        ("self GQA n_kv 4", bf, 16, 16, 4, 503, 64, dict(bound=411, pad_row=0)),
+        ("self GQA group 8, d 128", bf, 4, 16, 2, 200, 128, dict(bound=150)),
+        ("self group 3, d 32", bf, 3, 6, 2, 77, 32, dict(bound=40, dead_row=1)),
+        ("self b1 (streaming)", bf, 1, 16, 16, 503, 64, dict(bound=502)),
+        ("self b32", bf, 32, 16, 16, 503, 64, dict(bound=250, pad_row=31)),
+        ("self fp32", f32, 16, 16, 16, 503, 64, dict(bound=300, pad_row=3)),
+        ("cross fp32 GQA", f32, 4, 16, 8, 64, 64, dict(ragged=True, dead_row=2)),
+    )
+    errs = {}
+    for i, (name, dtype, b, h, n_kv, total, d, opts) in enumerate(cases):
+        tol = ATTN_TOL if dtype == bf else 1e-5
+        errs[name] = e = err_of(*_decode_inputs(dev, dtype, b, h, n_kv, total, d, 100 + i, **opts))
+        log(f"decode_attention {name}: {dtype} b={b} h={h} n_kv={n_kv} total={total} d={d} {opts}: "
+            f"max abs err vs fp32 plain {e:.3e} (tol {tol})")
+        check(np.isfinite(e) and e <= tol, f"decode_attention {name} error {e} > {tol}")
+
+    # times at the two main-path shapes. Every layer has its own cache, so the
+    # real caller finds K and V cold: the timed calls rotate over cache sets
+    # that together exceed the 50 MB L2; "warm" repeats one set.
+    rows = {}
+    for name, b, total, opts in (("self", 16, 503, dict(bound=300, pad_row=3)),
+                                 ("cross", 16, 64, dict(ragged=True, dead_row=5)),
+                                 ("self_b1", 1, 503, dict(bound=300)), ("self_b32", 32, 503, dict(bound=300))):
+        h = n_kv = 16
+        d = 64
+        set_bytes = 2 * b * n_kv * total * d * 2
+        n_sets = max(2, -(-int(120e6) // set_bytes))
+        sets = [_decode_inputs(dev, bf, b, h, n_kv, total, d, 200 + s, **opts) for s in range(min(n_sets, 64))]
+
+        def library(q, k, v, bias):  # q is pre-scaled: scale 1
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=bias[:, None, None, :].to(q.dtype), scale=1.0)
+
+        def in_turn(fn, n=24):  # 24 calls, as the 24 layers of one position, each on the next cache set
+            return [(lambda a=sets[i % len(sets)]: fn(*a)) for i in range(n)]
+
+        launches_before = decode_attention.launches
+        ms_kernel = time_graph_ms(in_turn(decode_attention))
+        ms_warm = time_graph_ms(in_turn(lambda *a: decode_attention(*sets[0])))
+        ms_plain = time_graph_ms(in_turn(decode_attention_plain))
+        ms_lib = time_graph_ms(in_turn(library))
+        turn = iter(range(10**9))
+        ms_eager = time_ms(lambda: decode_attention(*sets[next(turn) % len(sets)]))
+        check(decode_attention.launches > launches_before, "decode_attention did not count its launches")
+        lib_err = float((library(*sets[0]).float() - decode_attention_plain(*(t.float() for t in sets[0]))).abs().max())
+        nbytes = set_bytes + 2 * b * h * d * 2 + b * total * 4  # K, V; q, o; bias
+        bms, by = bound_ms(4.0 * b * h * total * d, nbytes, PEAK_BF16_FLOPS)
+        log(f"decode_attention times, {name} (b {b}, h 16, total {total}, d 64, bf16; device time per call in a CUDA "
+            f"graph of 24 calls over {len(sets)} cache sets in turn): kernel {ms_kernel:.5f} ms (one set repeated: "
+            f"{ms_warm:.5f}), plain {ms_plain:.5f} ms, library (SDPA, bias as attn_mask; its max abs err vs fp32 "
+            f"plain {lib_err:.3e}) {ms_lib:.5f} ms, bound {bms:.5f} ms ({by}) = {100 * bms / ms_kernel:.1f}% of the "
+            f"kernel's time; one eager call with its host launch: {ms_eager:.4f} ms")
+        rows[name] = {"ms": ms_kernel, "warm_ms": ms_warm, "plain_ms": ms_plain, "library_ms": ms_lib,
+                      "bound_ms": bms, "bound_by": by, "eager_call_ms": ms_eager}
+        del sets
+        torch.cuda.empty_cache()
+    return {"name": "decode_attention", "route": "cuda", "source": "f5tts_tpu_torch/csrc/decode_attention.cu",
+            "replaces": "f5tts_tpu/ops/pallas/decode_attention.py:88", "max_abs_err": max(
+                e for name, e in errs.items() if "fp32" not in name), **rows["self"],
+            "other_shapes": {k: v for k, v in rows.items() if k != "self"}}
+
+
 # ---------------------------------------------------------------------------
 # engine phase
 # ---------------------------------------------------------------------------
@@ -339,7 +486,7 @@ def bench_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card: str) -> None:
         return float(wave[:, :64].sum())  # host fetch: the solve has finished
 
     run()
-    profile_solve(run)
+    profile_by_family("one bench solve", run, (("flash_attention", ("flash_fwd",)), ("conv_pos", ("conv_wmma", "conv_generic"))))
     iters = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -351,32 +498,45 @@ def bench_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card: str) -> None:
         f"iter_s {[round(t, 4) for t in iters]}, median {dt:.4f} s, {audio_s / dt:.2f} audio-s/s")
 
 
-def profile_solve(run) -> None:
-    """Device time of one bench-geometry solve by kernel family
-    (``torch.profiler``, kernels only), and the device's busy share of the
-    wall time (single stream: kernels do not overlap)."""
+COMMON_FAMILIES = (("gemm", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "splitK")), ("reduction", ("reduce_kernel",)),
+                   ("elementwise", ("elementwise", "vectorized", "unrolled")))
+
+
+def profile_by_family(what: str, run, families, *, top: int = 6, device_only: bool = False,
+                      wall_plain_ms: float | None = None) -> None:
+    """Device time of one call of ``run`` (which ends synchronised) by kernel
+    family (``torch.profiler``, kernels only) and the device's busy share of
+    the wall time (single stream: kernels do not overlap). ``families`` come
+    before the common ones; ``device_only`` records no host events (a call
+    with hundreds of thousands of launches); ``wall_plain_ms`` is the same
+    call's wall time without the profiler, to state the busy share against."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+    t_all = time.perf_counter()
+    activities = [ProfilerActivity.CUDA] if device_only else [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities, acc_events=True) as prof:
         t0 = time.perf_counter()
         run()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    families = (("flash_attention", ("flash_fwd",)), ("conv_pos", ("conv_wmma", "conv_generic")),
-                ("gemm", ("gemm", "cutlass", "xmma", "nvjet")), ("reduction", ("reduce_kernel",)),
-                ("elementwise", ("elementwise", "vectorized", "unrolled")))
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     sums: dict[str, float] = {}
+    counts: dict[str, int] = {}
     for e in kernels:
-        fam = next((f for f, keys in families if any(k in e.key for k in keys)), "other")
+        fam = next((f for f, keys in (*families, *COMMON_FAMILIES) if any(k in e.key for k in keys)), "other")
         sums[fam] = sums.get(fam, 0.0) + e.self_device_time_total / 1e3
+        counts[fam] = counts.get(fam, 0) + e.count
     busy = sum(sums.values())
-    log(f"profile of one bench solve: wall {wall_ms:.1f} ms (profiler on), kernels {busy:.1f} ms "
-        f"= {100 * busy / wall_ms:.1f}% busy, {100 - 100 * busy / wall_ms:.1f}% idle")
+    plain = "" if wall_plain_ms is None else (
+        f"; without the profiler the call took {wall_plain_ms:.1f} ms: {100 * busy / wall_plain_ms:.1f}% busy, "
+        f"{100 - 100 * busy / wall_plain_ms:.1f}% idle of that")
+    log(f"profile of {what}: wall {wall_ms:.1f} ms (profiler on), {sum(counts.values())} device launches, kernels "
+        f"{busy:.1f} ms = {100 * busy / wall_ms:.1f}% busy, {100 - 100 * busy / wall_ms:.1f}% idle{plain} "
+        f"(profiling took {time.perf_counter() - t_all:.1f} s in all)")
     for fam, ms in sorted(sums.items(), key=lambda kv: -kv[1]):
-        log(f"  {fam}: {ms:.1f} ms ({100 * ms / busy:.1f}% of kernel time)")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"  {fam}: {ms:.1f} ms ({100 * ms / busy:.1f}% of kernel time), {counts[fam]} launches")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"  kernel {e.key[:80]!r}: {e.self_device_time_total / 1e3:.1f} ms, {e.count} launches")
 
 
@@ -487,34 +647,6 @@ def train_grad_parity(dev, tok) -> None:
     check(np.isfinite(rel) and rel <= TRAIN_GRAD_RTOL, f"train gradients diverged from the plain path: {rel}")
 
 
-def profile_step(step) -> None:
-    """Device time of one train step by kernel family (``torch.profiler``)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    families = (("flash_attention_train_fwd", ("fwd_lse",)), ("flash_attention_train_bwd", ("bwd_dkdv", "bwd_dq")),
-                ("conv_pos", ("conv_wmma", "conv_generic")), ("gemm", ("gemm", "cutlass", "xmma", "nvjet")),
-                ("reduction", ("reduce_kernel",)), ("elementwise", ("elementwise", "vectorized", "unrolled")))
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    sums: dict[str, float] = {}
-    for e in kernels:
-        fam = next((f for f, keys in families if any(key in e.key for key in keys)), "other")
-        sums[fam] = sums.get(fam, 0.0) + e.self_device_time_total / 1e3
-    busy = sum(sums.values())
-    log(f"profile of one train step: wall {wall_ms:.1f} ms (profiler on), kernels {busy:.1f} ms "
-        f"= {100 * busy / wall_ms:.1f}% busy, {100 - 100 * busy / wall_ms:.1f}% idle")
-    for fam, ms in sorted(sums.items(), key=lambda kv: -kv[1]):
-        log(f"  {fam}: {ms:.1f} ms ({100 * ms / busy:.1f}% of kernel time)")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"  kernel {e.key[:80]!r}: {e.self_device_time_total / 1e3:.1f} ms, {e.count} launches")
-
-
 TRAIN_SHAPES = ((37, 1024), (12, 3072), (37, 1024), (37, 1024), (37, 1024))  # (rows, frames) per step
 
 
@@ -572,8 +704,204 @@ def train_phase(dev, model, shapes, tok, card: str, launches: dict) -> None:
         f"frame-packed batches: step s {[round(t, 4) for t in steady]}, median {med:.4f} s, {frames / med:.0f} "
         f"mel-frames/s ({first[0] * first[1] / med:.0f} padded frames/s); other steps "
         f"{[(shape, round(t, 4)) for shape, t in zip(shapes, times) if shape != first]}")
-    profile_step(lambda: trainer.step(state, batches[2]))
+    profile_by_family("one train step", lambda: (trainer.step(state, batches[2]), torch.cuda.synchronize()), (
+        ("flash_attention_train_fwd", ("fwd_lse",)), ("flash_attention_train_bwd", ("bwd_dkdv", "bwd_dq")),
+        ("conv_pos", ("conv_wmma", "conv_generic"))), top=8)
     del state, trainer
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Parler: autoregressive serving (T5 encoder, delay-pattern decoder, DAC)
+# ---------------------------------------------------------------------------
+
+PARLER_LOGIT_TOL = 5e-2  # step logits (|logit| < 2), bf16 + kernel vs fp32 + plain: bf16 rounding through 2 layers
+# streamed vs batch waveform, bf16, same tokens: the DAC's windows differ in width from the full decode, so cuDNN
+# rounds other sums; that is the size of bf16 against fp32 in the DAC (~2e-3 at a wave peak of ~0.05 with random
+# weights). A flipped token would show as a difference of the order of the peak.
+PARLER_STREAM_TOL = 1e-2
+
+
+def parler_logit_parity(dev) -> None:
+    """Step logits of a short greedy decode at a small geometry (GQA, padded
+    prompt, ragged encoder mask): bf16 + kernel + fused q|k|v, teacher-forced
+    with the fp32 + plain path's tokens, against that path's logits."""
+    from f5tts_tpu_torch.models import parler as P
+    from f5tts_tpu_torch.models.convert import init_parler_decoder_numpy, params_from_numpy
+
+    geo = dict(vocab=64, codebooks=4, hidden=256, layers=2, heads=4, ffn=512, cross_dim=256, prompt_vocab=50,
+               kv_heads=2, cross_kv_heads=2)
+    tree = init_parler_decoder_numpy(P.ParlerDecoderConfig(**geo), seed=7)
+    rng = np.random.default_rng(8)
+    b, frames, enc_n, p = 3, 24, 12, 6
+    enc = torch.as_tensor(rng.standard_normal((b, enc_n, 256)), dtype=torch.float32, device=dev)
+    enc_mask = torch.as_tensor(np.arange(enc_n)[None] < np.array([[12], [7], [3]]), device=dev)
+    prompt = torch.as_tensor(rng.integers(0, 50, (b, p)), device=dev)
+    prompt_mask = torch.as_tensor(np.arange(p)[None] >= np.array([[0], [2], [5]]), device=dev)
+    runs = {}
+    forced = None
+    for name, dtype, attn, fuse in (("plain", torch.float32, "plain", False), ("kernel", torch.bfloat16, "kernel", True)):
+        cfg = P.ParlerDecoderConfig(**geo, decode_attn=attn, fuse_decode_qkv=fuse)
+        ctx = P._decode_ctx(params_from_numpy(tree, dev, dtype), cfg, enc, enc_mask, frames, 0, prompt, prompt_mask,
+                            None, None, -1, 0.0, 0, None, dtype)
+        carry, logits, toks, greedy = ctx.carry0, [], [], []
+        for j in range(1, ctx.steps + 1):
+            logits.append(carry[0])
+            greedy.append(torch.argmax(carry[0], -1))
+            carry, tok = ctx.step(carry, j, forced=None if forced is None else forced[j - 1])
+            toks.append(tok)
+        runs[name] = (torch.stack(logits), torch.stack(greedy))
+        forced = forced if forced is not None else toks
+    err = float((runs["kernel"][0] - runs["plain"][0]).abs().max())
+    peak = float(runs["plain"][0].abs().max())
+    agree = float((runs["kernel"][1] == runs["plain"][1]).float().mean())
+    log(f"parler parity (hidden 256, 2 layers, 4 heads of 64 over 2 KV heads, 4 codebooks, {frames} frames, padded "
+        f"prompt, ragged encoder mask): bf16 + kernel + fused q|k|v vs fp32 + plain, teacher-forced step logits "
+        f"max abs err {err:.3e} at peak |logit| {peak:.3f} (tol {PARLER_LOGIT_TOL}); greedy tokens agree at "
+        f"{100 * agree:.1f}% of positions (not required)")
+    check(np.isfinite(err) and err <= PARLER_LOGIT_TOL, f"parler step logits diverged: {err}")
+
+
+def parler_phase(dev, card: str, launches: dict) -> None:
+    from f5tts_tpu_torch.engine.ar_engine import ParlerEngineConfig, ParlerRow, ParlerTTSEngine
+    from f5tts_tpu_torch.engine.batcher import ContinuousBatcher
+    from f5tts_tpu_torch.models import parler as P
+    from f5tts_tpu_torch.models.convert import init_dac_numpy, init_parler_decoder_numpy, init_t5_numpy
+    from f5tts_tpu_torch.ops.kernels.conv_pos import conv_pos
+    from f5tts_tpu_torch.ops.kernels.decode_attention import decode_attention
+    from f5tts_tpu_torch.ops.kernels.flash_attention import flash_attention
+    from f5tts_tpu_torch.ops.kernels.flash_attention_train import flash_attention_train_bwd, flash_attention_train_fwd
+    from f5tts_tpu_torch.train.tree import tree_leaves
+
+    parler_logit_parity(dev)
+    others = {"flash_attention": flash_attention, "conv_pos": conv_pos,
+              "flash_attention_train_fwd": flash_attention_train_fwd,
+              "flash_attention_train_bwd": flash_attention_train_bwd}
+    total_launches = [0]
+
+    def counted(what: str, fn, want: int | None):
+        """Run ``fn`` with every count set to 0 before it; the decode kernel's
+        count must equal ``want`` (where given) and the F5 kernels' stay 0."""
+        decode_attention.launches = 0
+        for w in others.values():
+            w.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        n = decode_attention.launches
+        total_launches[0] += n
+        stray = {name: w.launches for name, w in others.items() if w.launches}
+        log(f"{what}: decode_attention launches {n}" + (f" (want {want})" if want is not None else ""))
+        check(n > 0 and (want is None or n == want), f"{what}: decode_attention launches {n}, want {want}")
+        check(not stray, f"{what}: F5 kernels launched on the Parler path: {stray}")
+        return out
+
+    # indic-parler-tts: flan-t5-large encoder, 24-layer decoder over 9 codebooks, 44.1 kHz DAC
+    t5_cfg, dec_cfg, dac_cfg = P.T5Config(), P.ParlerDecoderConfig(), P.DacConfig()
+    layers, K, hop = dec_cfg.layers, dec_cfg.codebooks, dac_cfg.hop
+    t0 = time.perf_counter()
+    trees = (init_t5_numpy(t5_cfg, seed=0), init_parler_decoder_numpy(dec_cfg, seed=1), init_dac_numpy(dac_cfg, seed=2))
+    n_params = [sum(t.size for _, t in tree_leaves(tree)) for tree in trees]
+    log(f"parler params (T5 {n_params[0]}, decoder {n_params[1]}, DAC {n_params[2]}; seeds 0, 1, 2) in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def encode_fn(text):  # stand-in for the T5 sentencepiece tokenizer, which ships with the checkpoint
+        return [ord(c) % t5_cfg.vocab for c in text]
+
+    frames = 128
+    engine = ParlerTTSEngine(*(x for pair in zip(trees, (t5_cfg, dec_cfg, dac_cfg)) for x in pair),
+                             ParlerEngineConfig(max_frames=frames), encode_fn=encode_fn, device=dev)
+    check(engine.dec_cfg.decode_attn == "kernel" and engine.dec_cfg.fuse_decode_qkv, "engine not on the kernel path")
+    t5_calls = [0]
+    encode = engine._encode
+
+    def counting_encode(*a):
+        t5_calls[0] += 1
+        return encode(*a)
+
+    engine._encode = counting_encode
+    batcher = ContinuousBatcher(engine, max_batch=32, max_wait_ms=500.0).start()  # a window no host hiccup splits
+    rows = [ParlerRow("A calm female speaker with clear diction in a quiet room.", "Hello there, this is the ported engine.", seed=11),
+            ParlerRow("A fast male voice, slightly expressive, close microphone.", "नमस्ते, यह दूसरा अनुरोध है।", seed=12),
+            ParlerRow("An old storyteller with a warm, slow delivery.", "ನಮಸ್ಕಾರ, ಇದು ಮೂರನೇ ವಿನಂತಿ.", seed=13)]
+
+    def burst():
+        t_req = time.perf_counter()
+        futures = [batcher.submit(r) for r in rows]
+        waves = [f.result(timeout=600)[0] for f in futures]
+        return waves, time.perf_counter() - t_req
+
+    want = 2 * layers * (frames + K - 1)
+    (first, dt1) = counted("parler burst 1 (3 requests through ContinuousBatcher -> one bucket of 4)", burst, want)
+    check(batcher.stats == {"batches": 1, "rows": 3, "max_batch_seen": 3}, f"requests did not co-batch: {batcher.stats}")
+    for i, w in enumerate(first):
+        log(f"  request {i}: {len(w)} samples = {len(w) // hop} frames x hop {hop} = {len(w) / dac_cfg.sampling_rate:.3f} s "
+            f"at {dac_cfg.sampling_rate} Hz, peak {float(np.abs(w).max()) if len(w) else 0.0:.4f}")
+        check(w.dtype == np.float32 and w.ndim == 1 and 0 < len(w) <= frames * hop and len(w) % hop == 0,
+              f"request {i}: {len(w)} samples")
+        check(bool(np.isfinite(w).all()) and float(np.abs(w).max()) > 0, f"request {i}: wave not finite/non-zero")
+    hits, misses, calls = engine.desc_cache_hits, engine.desc_cache_misses, t5_calls[0]
+    check(calls == 1 and misses == 4 and hits == 0, f"first burst: T5 calls {calls}, misses {misses}, hits {hits}")
+    (second, dt2) = counted("parler burst 2 (same requests: description cache)", burst, want)
+    same = max(float(np.abs(a - b).max()) if a.shape == b.shape else float("inf") for a, b in zip(first, second))
+    log(f"bursts: {dt1:.3f} s cold, {dt2:.3f} s with cached descriptions; desc_cache_hits {engine.desc_cache_hits}, "
+        f"misses {engine.desc_cache_misses}, T5 calls {t5_calls[0]}; max abs difference between the bursts' waves {same:.3e}")
+    check(engine.desc_cache_hits == hits + 4 and engine.desc_cache_misses == misses and t5_calls[0] == calls,
+          "second burst did not hit the description cache")
+    check(same <= 1e-3, f"cached-description burst differs from the first: {same}")
+    batcher.stop()
+
+    # streaming: segments of one request equal the batch path's wave for the same seed
+    desc, text = rows[0].description, rows[0].prompt
+    engine._desc_cache.clear()  # both paths encode the description alone, so both decode from the same states
+    full = counted("parler batch path, one row", lambda: engine.synthesize_batch(
+        [desc], [text], row_seeds=[5], strict_lengths=True)[0], want)
+    t_s = time.perf_counter()
+    chunks = counted("parler streaming, one row", lambda: list(engine.synthesize_streaming(desc, text, seed=5)), None)
+    stream = np.concatenate(chunks)
+    check(stream.shape == full.shape and len(chunks) > 1, f"stream {stream.shape} in {len(chunks)} segments vs batch {full.shape}")
+    diff = float(np.abs(stream - full).max())
+    rel_rms = float(np.sqrt(np.mean((stream - full) ** 2)) / np.sqrt(np.mean(full**2)))
+    log(f"streaming: {len(chunks)} segments of {[len(c) // hop for c in chunks]} frames in {time.perf_counter() - t_s:.3f} s, "
+        f"{len(stream)} samples; max abs difference from the batch path {diff:.3e} (tol {PARLER_STREAM_TOL}), RMS of the "
+        f"difference over the wave's RMS {rel_rms:.3e} (wave peak {float(np.abs(full).max()):.4f})")
+    check(diff <= PARLER_STREAM_TOL, f"streamed wave differs from the batch path: {diff}")
+    del engine, batcher
+    torch.cuda.empty_cache()
+
+    # the bench request: batch 16 x 430 frames, greedy, no EOS, bf16
+    batch, frames = 16, 430
+    engine = ParlerTTSEngine(*(x for pair in zip(trees, (t5_cfg, dec_cfg, dac_cfg)) for x in pair),
+                             ParlerEngineConfig(max_frames=frames, desc_pad=64, prompt_pad=64, temperature=0.0,
+                                                eos_token=-1), encode_fn=encode_fn, device=dev)
+    descs = [f"A calm female speaker with clear diction, take {i}." for i in range(batch)]
+    prompts = [f"This is utterance number {i} for the throughput benchmark." for i in range(batch)]
+    want = 2 * layers * (frames + K - 1)
+
+    def run():
+        waves = engine.synthesize_batch(descs, prompts)
+        check(len(waves) == batch and all(len(w) == frames * hop and np.isfinite(w).all() for w in waves),
+              "bench waves not finite or of the wrong length")
+
+    torch.cuda.reset_peak_memory_stats()
+    counted("parler bench warm call", run, want)
+    iters = []
+    for i in range(3):
+        t_it = time.perf_counter()
+        counted(f"parler bench call {i + 1}", run, want)
+        iters.append(time.perf_counter() - t_it)
+    dt = statistics.median(iters)
+    audio_s = batch * frames / (dac_cfg.sampling_rate / hop)
+    log(f"parler bench on {card}: batch {batch} x {frames} frames, greedy, eos off, bf16, decode_attn=kernel, fused q|k|v: "
+        f"iter_s {[round(t, 4) for t in iters]}, median {dt:.4f} s, {audio_s / dt:.2f} audio-s/s, "
+        f"{batch * (frames + K - 1) / dt:.1f} decode steps/s ({(frames + K - 1) / dt:.1f} positions/s, "
+        f"{1e3 * dt / (frames + K - 1):.3f} ms per position), peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    profile_by_family("one Parler bench call", lambda: counted("parler bench call under the profiler", run, want), (
+        ("decode_attention", ("decode_attn",)), ("layer_norm", ("layer_norm",)),
+        ("conv (DAC)", ("conv", "cudnn")), ("gather/copy", ("index", "gather", "copy", "cat", "Memcpy", "Memset"))),
+        top=8, device_only=True, wall_plain_ms=dt * 1e3)
+    launches["decode_attention"]["parler"] = total_launches[0]
+    del engine
     torch.cuda.empty_cache()
 
 
@@ -602,7 +930,7 @@ def main():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"  [{name}] {line.strip()}")
 
-    kernels = [attention_phase(dev), conv_phase(dev), *train_kernel_phase(dev)]
+    kernels = [attention_phase(dev), conv_phase(dev), *train_kernel_phase(dev), decode_attention_phase(dev)]
     launches = {k["name"]: {} for k in kernels}  # kernel -> path -> launches, each path's counts set to 0 before it
     if not args.kernels_only:
         from f5tts_tpu_torch.models.convert import init_dit_numpy, init_vocos_numpy
@@ -617,13 +945,15 @@ def main():
         bench_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card)
         del dit_np, voc_np
         train_phase(dev, dit_cfg, TRAIN_SHAPES, tok, card, launches)  # F5-TTS Base, dropout 0.1, kernels
+        parler_phase(dev, card, launches)  # indic-parler-tts width and depth, random weights
     for k in kernels:
         k["launches_by_path"] = launches[k["name"]]
         k["launches"] = sum(launches[k["name"]].values())
     log(card_line())
     log(json.dumps({"kernels": [{key: k[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-        "bound_by", "library_ms", "launches_by_path")} for k in kernels]}))
+        "bound_by", "library_ms", "launches_by_path", *(("other_shapes",) if "other_shapes" in k else ()))}
+        for k in kernels]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
 

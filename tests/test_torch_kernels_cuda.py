@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from f5tts_tpu_torch.ops.kernels import conv_pos as t_conv
+from f5tts_tpu_torch.ops.kernels import decode_attention as t_dec
 from f5tts_tpu_torch.ops.kernels import flash_attention as t_flash
 from f5tts_tpu_torch.ops.kernels import flash_attention_train as t_train
 from f5tts_tpu_torch.ops.rope import rotary_freqs
@@ -144,3 +145,77 @@ def test_serving_wrappers_raise_on_inputs_that_require_grad(dev):
     with torch.no_grad():  # inference on the same tensors is allowed
         t_flash.flash_attention(q, q, q)
         t_conv.conv_pos(x, w, b, w, b)
+
+
+def _decode_case(dev, dtype, b, h, n_kv, total, d, dead_row=None):
+    g = torch.Generator().manual_seed(4)
+    q = (torch.randn((b, h, 1, d), generator=g) * d**-0.5).to(dev, dtype)
+    k, v = (torch.randn((b, n_kv, total, d), generator=g).to(dev, dtype) for _ in range(2))
+    allowed = torch.arange(total)[None, :] <= torch.randint(0, total, (b, 1), generator=g)  # a causal bound per row
+    allowed[0, :2] = False  # padded prompt keys
+    if dead_row is not None:
+        allowed[dead_row] = False
+    return q, k, v, torch.where(allowed, 0.0, -1e9).to(dev)
+
+
+# bf16 kernel vs fp32 plain on the same bf16 inputs within 2e-2 (p and o are
+# rounded to bf16); fp32 kernel within 1e-5 (summation order only)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("b,h,n_kv,total,d,dead_row", [
+    (3, 4, 4, 77, 64, None), (2, 8, 2, 200, 64, 1), (2, 6, 2, 33, 32, None), (1, 16, 2, 300, 128, None),
+    (2, 4, 4, 1, 64, None)])
+def test_decode_attention_kernel_matches_plain(dev, dtype, tol, b, h, n_kv, total, d, dead_row):
+    q, k, v, bias = _decode_case(dev, dtype, b, h, n_kv, total, d, dead_row)
+    before = t_dec.decode_attention.launches
+    out = t_dec.decode_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert t_dec.decode_attention.launches == before + 1
+    assert out.shape == q.shape and out.dtype == dtype
+    ref = t_dec.decode_attention_plain(q.float(), k.float(), v.float(), bias)
+    assert float((out.float() - ref).abs().max()) < tol
+
+
+@pytest.mark.cuda
+def test_decode_attention_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    q, k, v, bias = _decode_case(dev, torch.bfloat16, 2, 4, 2, 40, 64)
+    with pytest.raises(ValueError, match="head dims"):
+        t_dec.decode_attention(q[..., :48].contiguous(), k[..., :48].contiguous(), v[..., :48].contiguous(), bias)
+    with pytest.raises(TypeError):
+        t_dec.decode_attention(q.half(), k.half(), v.half(), bias)
+    with pytest.raises(ValueError, match="multiple of n_kv"):
+        t_dec.decode_attention(q[:, :3].contiguous(), k, v, bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        t_dec.decode_attention(q, k.transpose(2, 3).contiguous().transpose(2, 3), v, bias)
+    with pytest.raises(ValueError, match="fp32"):
+        t_dec.decode_attention(q, k, v, bias.bfloat16())
+    with pytest.raises(ValueError, match="shared memory"):
+        big = torch.zeros((1, 2, 70000, 64), device=dev, dtype=torch.bfloat16)
+        t_dec.decode_attention(q[:1], big, big, torch.zeros((1, 70000), device=dev))
+    with pytest.raises(RuntimeError, match="no backward"):
+        t_dec.decode_attention(q.clone().requires_grad_(True), k, v, bias)
+    with torch.no_grad():
+        t_dec.decode_attention(q.clone().requires_grad_(True), k, v, bias)
+
+
+@pytest.mark.cuda
+def test_parler_decode_through_the_kernel_matches_the_plain_path(dev):
+    """Greedy fp32 decode with ``decode_attn="kernel"`` (every step's self- and
+    cross-attention launches the kernel) gives the plain path's codes."""
+    from f5tts_tpu_torch.models import parler as TP
+    from f5tts_tpu_torch.models.convert import init_parler_decoder_numpy, params_from_numpy
+
+    kw = dict(vocab=40, codebooks=3, hidden=128, layers=2, heads=4, ffn=64, cross_dim=128, prompt_vocab=16,
+              kv_heads=2, cross_kv_heads=2)
+    params = params_from_numpy(init_parler_decoder_numpy(TP.ParlerDecoderConfig(**kw), seed=0), dev)
+    g = torch.Generator().manual_seed(5)
+    enc = torch.randn((2, 9, 128), generator=g).to(dev)
+    enc_mask = (torch.arange(9)[None] < torch.tensor([[9], [4]])).to(dev)
+    prompt = torch.randint(0, 16, (2, 3), generator=g).to(dev)
+    outs = {}
+    for attn in ("kernel", "plain"):
+        before = t_dec.decode_attention.launches
+        outs[attn] = TP.parler_generate(params, TP.ParlerDecoderConfig(**kw, decode_attn=attn, fuse_decode_qkv=True),
+                                        enc, enc_mask, 6, 0, prompt_ids=prompt, temperature=0.0, eos_token=-1)
+        assert t_dec.decode_attention.launches - before == (2 * 2 * (6 + 2) if attn == "kernel" else 0)
+    assert torch.equal(outs["kernel"][0], outs["plain"][0]) and torch.equal(outs["kernel"][1], outs["plain"][1])
