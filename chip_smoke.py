@@ -54,7 +54,25 @@ Phases, each of which fails the run (non-zero exit) on any error:
    launches must equal 2 x 24 x (frames + 8) and the F5 kernels' counts stay
    0; a profiler breakdown of one bench call with the busy/idle share; and at
    a small geometry the step logits of bf16 + kernel against fp32 + plain,
-   teacher-forced.
+   teacher-forced;
+9. quant_matmul (with phase 2): the fused quantize + int8 tensor-core matmul
+   at the shapes the int8 engine gives it at the bench geometry (16 x 1024
+   rows of bf16 against the q/k/v/out, feed-forward in and feed-forward out
+   weights of F5-TTS Base), a ragged fp32 shape, shapes that are no multiple
+   of its tiles, a zero row and a row of 1e-7 under both floor conventions:
+   every result bit-equal to the plain version; times beside the plain
+   version, PyTorch's quantize + ``torch._int_mm`` + rescale, the bf16
+   ``torch.matmul`` of the same shape (what int8 has to beat) and the bound;
+   and the rate of the ``mma.sync`` s8 instruction alone;
+10. int8 engine (after phase 4): ``TTSEngine(EngineConfig(quantization="int8"))``
+   at F5-TTS Base + Vocos: one request with exact launch counts (quant_matmul
+   6 x 22, attention 22, conv-pos 2 per DiT forward), one DiT forward and one
+   whole solve against the bf16 engine from the same noise, a strict request
+   (estimate, escalations), ``synthesize_batch`` of three chunks as one
+   solve, ``synthesize_streaming`` against ``synthesize``'s wave, then the
+   bench geometry at int8 beside the bf16 figure of the same run, with a
+   profile whose library-GEMM launches must drop by exactly the 2640 that
+   moved to quant_matmul.
 
 The last lines are the card's name and power limit, one ``{"kernels": [...]}``
 JSON line and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -75,12 +93,15 @@ import torch
 import torch.nn.functional as F
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 ATTN_TOL = 2e-2  # bf16 kernel vs fp32 plain on the same bf16 inputs
 CONV_TOL = 3e-2  # bf16 (bf16 intermediate) vs fp32 plain (fp32 intermediate)
 LSE_TOL = 1e-3  # training forward's lse: fp32 in both, scores from the same bf16 inputs
 GRAD_TOL = 3e-2  # attention gradients, max abs error over max(1, peak |ref|): p and dS rounded to bf16
 TRAIN_GRAD_RTOL = 5e-2  # relative L2 of a bf16 kernel train step's gradients vs the fp32 plain path
+INT8_SOLVE_REL, INT8_SOLVE_COS = 0.1, 0.995  # int8 vs bf16 engine, generated mel of one solve from the same noise
+STREAM_REL_RMS = 5e-2  # streamed vs batched chunks, bf16: library GEMMs pick other algorithms at other batch sizes
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -362,6 +383,117 @@ def decode_attention_phase(dev) -> dict:
             "other_shapes": {k: v for k, v in rows.items() if k != "self"}}
 
 
+def _quant_inputs(dev, dtype, m, k, n, seed):
+    """Activations with rows of very different magnitude and some all-zero
+    (padding) rows, random int8 weights and positive column scales."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn((m, k), generator=g) * torch.exp(2.0 * torch.randn((m, 1), generator=g))
+    x[torch.rand((m,), generator=g) < 0.05] = 0.0
+    w_q = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8)
+    s_w = (torch.rand((n,), generator=g) * 0.01 + 1e-4).float()
+    return x.to(dev, dtype), w_q.to(dev), s_w.to(dev)
+
+
+def quant_matmul_phase(dev) -> dict:
+    """The fused W8A8 matmul at the shapes the int8 engine gives it at the
+    bench geometry (16 x 1024 rows; q/k/v/out, ff in, ff out of F5-TTS Base),
+    held bit-equal to its plain version: the integer product is exact and
+    every fp32 step is one correctly rounded operation in a fixed order."""
+    from f5tts_tpu_torch.ops.kernels.quant_matmul import (kernel_layout, mma_rate_probe, quant_matmul,
+                                                          quant_matmul_plain)
+
+    bf, f32 = torch.bfloat16, torch.float32
+    kernel_floor, linear_floor = dict(amax_floor=1e-6, scale_floor=0.0), dict(amax_floor=0.0, scale_floor=1e-8)
+
+    def differing(x, w_q, s_w, **floors):
+        out = quant_matmul(x, w_q, s_w, w_qt=kernel_layout(w_q), **floors)
+        torch.cuda.synchronize()
+        ref = quant_matmul_plain(x, w_q, s_w, **floors)
+        check(out.shape == ref.shape and out.dtype == x.dtype, "quant_matmul output shape/dtype")
+        check(bool(torch.isfinite(out.float()).all()), "quant_matmul output not finite")
+        return int((out != ref).sum()), float((out.float() - ref.float()).abs().max())
+
+    cases = (  # name, dtype, M, K, N, floors
+        ("q/k/v/out", bf, 16384, 1024, 1024, linear_floor), ("ff in", bf, 16384, 1024, 2048, linear_floor),
+        ("ff out", bf, 16384, 2048, 1024, linear_floor), ("ragged fp32", f32, 1000, 1024, 2048, kernel_floor),
+        ("K, N not multiples of the tile", bf, 77, 80, 48, kernel_floor),
+        ("fp32, 32 rows per block", f32, 300, 4096, 64, linear_floor))
+    worst = 0.0
+    for i, (name, dtype, m, k, n, floors) in enumerate(cases):
+        bad, err = differing(*_quant_inputs(dev, dtype, m, k, n, 300 + i), **floors)
+        worst = max(worst, err)
+        log(f"quant_matmul {name}: {dtype} ({m}, {k}) x ({k}, {n}), floors {floors}: {bad} of {m * n} elements differ "
+            f"from the plain version, max abs difference {err:.3e} (must be bit-equal)")
+        check(bad == 0, f"quant_matmul {name}: {bad} elements differ from the plain version")
+    # the two floors: a zero row and a row of 1e-7 (abs-max under 1.27e-6, where the conventions part)
+    for dtype in (bf, f32):
+        x, w_q, s_w = _quant_inputs(dev, dtype, 64, 1024, 1024, 310)
+        x[1] = 0.0
+        x[2] = torch.where(x[3] >= 0, 1e-7, -1e-7).to(dtype)
+        outs = {}
+        for name, floors in (("abs-max 1e-6", kernel_floor), ("scale 1e-8", linear_floor)):
+            bad, err = differing(x, w_q, s_w, **floors)
+            outs[name] = quant_matmul(x, w_q, s_w, w_qt=kernel_layout(w_q), **floors)
+            log(f"quant_matmul floors {dtype}, floor on {name}: {bad} elements differ from the plain version; zero row "
+                f"max |out| {float(outs[name][1].abs().max()):.1e}, 1e-7 row max |out| {float(outs[name][2].abs().max()):.3e}")
+            check(bad == 0 and float(outs[name][1].abs().max()) == 0.0, f"quant_matmul floor {name} ({dtype})")
+        a, b = outs["abs-max 1e-6"], outs["scale 1e-8"]
+        check(torch.equal(a[3:], b[3:]) and not torch.equal(a[2], b[2]),
+              "the two floors must agree on ordinary rows and differ on the 1e-7 row")
+
+    # the rate of the mma.sync s8 instruction alone (register operands, no memory): what the
+    # kernel's product phase can reach at most, with the kernel's 8 warps per SM and with 32
+    mma_rate = {}
+    for warps_per_sm in (8, 32):
+        blocks, iters = 132 * warps_per_sm // 8, 4096
+        ms = time_ms(lambda: mma_rate_probe(blocks, iters, dev), iters=5, warmup=1)
+        mma_rate[warps_per_sm] = blocks * 8 * 8 * iters * (16 * 8 * 32 * 2) / ms / 1e9
+        log(f"mma.sync m16n8k32 s8 rate, {warps_per_sm} warps per SM, 8 independent accumulators per warp: "
+            f"{mma_rate[warps_per_sm]:.1f} TOP/s ({100 * mma_rate[warps_per_sm] * 1e12 / PEAK_INT8_OPS:.1f}% of the "
+            f"card's dense int8 peak)")
+
+    log(f"time_ms of an empty call (what the event pair itself reads): {time_ms(lambda: None):.4f} ms")
+    rows = {}
+    for name, m, k, n in (("qkvo", 16384, 1024, 1024), ("ff_in", 16384, 1024, 2048), ("ff_out", 16384, 2048, 1024)):
+        x, w_q, s_w = _quant_inputs(dev, bf, m, k, n, 320)
+        w_qt = kernel_layout(w_q)
+        w_bf = (w_q.float() * s_w).to(bf)
+        launches_before = quant_matmul.launches
+        ms_kernel = time_ms(lambda: quant_matmul(x, w_q, s_w, w_qt=w_qt, **linear_floor))
+        check(quant_matmul.launches == launches_before + 23, "quant_matmul did not count its launches")
+        ms_plain = time_ms(lambda: quant_matmul_plain(x, w_q, s_w, **linear_floor), iters=5, warmup=1)
+        ms_bf16 = time_ms(lambda: x @ w_bf)
+        sx = (x.float().abs().amax(-1, keepdim=True) / 127.0).clamp_min(1e-8)
+        xq = torch.round(x.float() / sx).to(torch.int8)
+
+        def library():  # PyTorch's quantize ops, one library int8 GEMM, PyTorch's rescale
+            sx_ = (x.float().abs().amax(-1, keepdim=True) / 127.0).clamp_min(1e-8)
+            xq_ = torch.round(x.float() / sx_).to(torch.int8)
+            return ((torch._int_mm(xq_, w_q).float() * sx_) * s_w).to(bf)
+
+        try:
+            lib_err = float((library().float() - quant_matmul_plain(x, w_q, s_w, **linear_floor).float()).abs().max())
+            ms_lib, ms_int_mm = time_ms(library), time_ms(lambda: torch._int_mm(xq, w_q))
+        except (RuntimeError, AttributeError) as e:  # the yardstick only: this build has no int8 GEMM call
+            log(f"quant_matmul {name}: torch._int_mm is not available here ({type(e).__name__}: {e})")
+            lib_err = ms_lib = ms_int_mm = None
+        nbytes = m * k * 2 + k * n + n * 4 + m * n * 2  # x, w_q, s_w, out
+        bms, by = bound_ms(2.0 * m * k * n, nbytes, PEAK_INT8_OPS)
+        log(f"quant_matmul times, {name} ({m}, {k}) x ({k}, {n}) bf16: kernel {ms_kernel:.4f} ms "
+            f"({2.0 * m * k * n / ms_kernel / 1e9:.1f} TOP/s), plain {ms_plain:.4f} ms, library (PyTorch quantize + "
+            f"torch._int_mm + rescale; its max abs difference from the plain version {lib_err}) {ms_lib} ms, of which "
+            f"torch._int_mm on pre-quantized operands {ms_int_mm} ms; bf16 torch.matmul of the same shape "
+            f"{ms_bf16:.4f} ms; bound {bms:.4f} ms ({by}) = {100 * bms / ms_kernel:.1f}% of the kernel's time")
+        rows[name] = {"ms": ms_kernel, "plain_ms": ms_plain, "library_ms": ms_lib, "int_mm_ms": ms_int_mm,
+                      "bf16_matmul_ms": ms_bf16, "bound_ms": bms, "bound_by": by}
+        del x, w_q, s_w, w_qt, w_bf, xq, sx
+        torch.cuda.empty_cache()
+    return {"name": "quant_matmul", "route": "cuda", "source": "f5tts_tpu_torch/csrc/quant_matmul.cu",
+            "replaces": "f5tts_tpu/ops/pallas/quant_matmul.py:36", "max_abs_err": worst, **rows["qkvo"],
+            "mma_sync_s8_top_s": mma_rate,
+            "other_shapes": {k: v for k, v in rows.items() if k != "qkvo"}}
+
+
 # ---------------------------------------------------------------------------
 # engine phase
 # ---------------------------------------------------------------------------
@@ -395,14 +527,7 @@ def engine_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, launches: dict) -> 
     from f5tts_tpu_torch.sampling.euler import SamplerConfig, sample_cfm
 
     engine = TTSEngine(dit_np, dit_cfg, voc_np, tok, EngineConfig(vocoder=voc_cfg), device=dev)
-    solves = []
-    program = engine.bucket_program
-
-    def counted(*a, **kw):
-        solves.append((kw["steps"], a[0].shape[0]))
-        return program(*a, **kw)
-
-    engine.bucket_program = counted
+    solves = _count_solves(engine)
     requests = [
         ("Hello there, this is a short test of the ported engine.", synthetic_ref(2.5, 140.0, 0),
          "A short reference clip."),
@@ -412,7 +537,6 @@ def engine_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, launches: dict) -> 
         ("ನಮಸ್ಕಾರ, ಇದು ಮೂರನೇ ವಿನಂತಿ.", synthetic_ref(4.0, 180.0, 2), "Reference speech for the third voice."),
     ]
     n_blocks = dit_cfg.depth
-    forwards_per_step = 2  # ralston: two model evals per interval, each one fused 2b-row forward
     flash_attention.launches = 0
     conv_pos.launches = 0
     t0 = time.perf_counter()
@@ -430,9 +554,9 @@ def engine_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, launches: dict) -> 
     wall = time.perf_counter() - t0
     launches["flash_attention"]["serve"] = flash_attention.launches
     launches["conv_pos"]["serve"] = conv_pos.launches
-    n_forwards = sum(steps * forwards_per_step for steps, _ in solves)
+    n_forwards = sum(forwards for forwards, _ in solves)  # each one fused 2b-row forward
     want_flash, want_conv = n_blocks * n_forwards, 2 * n_forwards
-    log(f"engine: {len(requests)} requests, {len(solves)} solves {solves} in {wall:.3f} s; launches "
+    log(f"engine: {len(requests)} requests, {len(solves)} solves (forwards, rows) {solves} in {wall:.3f} s; launches "
         f"flash_attention {flash_attention.launches} (want {want_flash}), conv_pos {conv_pos.launches} (want {want_conv})")
     check(any(b > 1 for _, b in solves), "no solve batched several rows")
     check(flash_attention.launches == want_flash and want_flash > 0, "flash_attention launch count")
@@ -466,14 +590,190 @@ def engine_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, launches: dict) -> 
     del p32
 
 
-def bench_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card: str) -> None:
+INT8_FORWARD_REL, INT8_FORWARD_COS = 0.1, 0.995  # what tests/test_quantization.py holds the JAX package to
+QUANTIZED_LINEARS = 6  # to_q, to_k, to_v, to_out, ff in, ff out of every block
+
+
+def _count_solves(engine) -> list:
+    """Record ``(model forwards, rows)`` of every bucket program the engine
+    runs: 2 evals per Ralston interval, 1 per euler step of the recipe."""
+    solves = []
+    program = engine.bucket_program
+
+    def counted(*a, **kw):
+        solves.append((kw["steps"] * (1 if kw.get("recipe") else 2), a[0].shape[0]))
+        return program(*a, **kw)
+
+    engine.bucket_program = counted
+    return solves
+
+
+def int8_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card: str, launches: dict, bf16_bench: dict) -> None:
+    """The int8 (W8A8) engine at F5-TTS Base + Vocos: one request with exact
+    launch counts, parity against the bf16 engine, the bench geometry beside
+    the bf16 figure, then strict, batch and streaming requests."""
+    from f5tts_tpu_torch.engine.engine import EngineConfig, TTSEngine
+    from f5tts_tpu_torch.models.dit import dit_forward
+    from f5tts_tpu_torch.ops.kernels.conv_pos import conv_pos
+    from f5tts_tpu_torch.ops.kernels.flash_attention import flash_attention
+    from f5tts_tpu_torch.ops.kernels.quant_matmul import quant_matmul
+
+    wrappers = {"quant_matmul": quant_matmul, "flash_attention": flash_attention, "conv_pos": conv_pos}
+    per_forward = {"quant_matmul": QUANTIZED_LINEARS * dit_cfg.depth, "flash_attention": dit_cfg.depth, "conv_pos": 2}
+    engine = TTSEngine(dit_np, dit_cfg, voc_np, tok, EngineConfig(vocoder=voc_cfg, quantization="int8"), device=dev)
+    blocks = engine.dit_params["blocks"]
+    for group, name in [("attn", n) for n in ("to_q", "to_k", "to_v", "to_out")] + [("ff", "in"), ("ff", "out")]:
+        lin = blocks[group][name]
+        check("w" not in lin and lin["w_q"].dtype == torch.int8 and lin["s_w"].dtype == torch.float32
+              and lin["w_qt"].shape == (dit_cfg.depth, lin["w_q"].shape[2], lin["w_q"].shape[1]),
+              f"{group}.{name} is not quantized with its kernel layout")
+    solves = _count_solves(engine)
+
+    def counted(what: str, path: str, fn):
+        """Run ``fn`` with the three counts set to 0 before it; they must equal
+        what the solves it ran need, exactly."""
+        for w in wrappers.values():
+            w.launches = 0
+        del solves[:]
+        out = fn()
+        torch.cuda.synchronize()
+        forwards = sum(f for f, _ in solves)
+        got = {name: w.launches for name, w in wrappers.items()}
+        want = {name: per_forward[name] * forwards for name in wrappers}
+        log(f"{what}: solves (forwards, rows) {list(solves)}; launches {got} (want {want}: per DiT forward "
+            f"{per_forward})")
+        check(got == want and forwards > 0, f"{what}: launches {got}, want {want}")
+        for name in wrappers:
+            launches[name][path] = launches[name].get(path, 0) + got[name]
+        return out
+
+    ref, ref_text = synthetic_ref(3.0, 120.0, 4), "A reference clip for the int8 engine."
+    text = "This request runs every block's six linears through the int8 tensor-core kernel."
+    plan = engine.prepare_request(text, ref, 24000, ref_text, seed=7)
+    t0 = time.perf_counter()
+    wave, sr, mel = counted("int8 request", "serve_int8", lambda: engine.synthesize(text, ref, 24000, ref_text, seed=7))
+    log(f"int8 request: {len(plan.rows)} rows, {len(wave) / sr:.3f} s of audio in {time.perf_counter() - t0:.3f} s; mel {mel.shape}")
+    check(sr == 24000 and len(wave) == planned_length(engine, plan), "int8 request: wrong waveform length")
+    check(bool(np.isfinite(wave).all()) and float(np.abs(wave).max()) > 0 and bool(np.isfinite(mel).all()),
+          "int8 request: wave or mel not finite/non-zero")
+
+    # parity against the bf16 engine: one DiT forward (the JAX package's own
+    # test and bounds), then a whole solve from the same noise
+    plain = TTSEngine(dit_np, dit_cfg, voc_np, tok, EngineConfig(vocoder=voc_cfg), device=dev)
+    rng = np.random.default_rng(5)
+    pb, pn, pref = 2, 256, 64
+    cond = torch.as_tensor(rng.standard_normal((pb, pn, 100)), dtype=torch.float32, device=dev)
+    cl = torch.full((pb,), pref, dtype=torch.int32, device=dev)
+    ids = torch.as_tensor(rng.integers(0, 90, (pb, 48)), dtype=torch.int32, device=dev)
+    dur = torch.tensor([pn, pn - 40], dtype=torch.int32, device=dev)
+    y0 = torch.as_tensor(rng.standard_normal((pb, pn, 100)), dtype=torch.float32, device=dev)
+    valid = torch.arange(pn, device=dev)[None] < dur[:, None]
+    gen = valid & (torch.arange(pn, device=dev)[None] >= pref)
+
+    def rel_cos(a, b, rows):
+        a, b = a.float()[rows], b.float()[rows]
+        return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)), float(
+            (a * b).sum() / (torch.linalg.vector_norm(a) * torch.linalg.vector_norm(b)))
+
+    f = torch.zeros((pb,), dtype=torch.bool, device=dev)
+    with torch.no_grad():
+        fwd = [dit_forward(e.dit_params, e.dit_cfg, y0, cond, ids, torch.tensor([0.4, 0.6], device=dev), f, f, valid,
+                           compute_dtype=torch.bfloat16) for e in (engine, plain)]
+    rel, cos = rel_cos(fwd[0], fwd[1], valid)
+    log(f"parity, one DiT forward (2 x 256 frames, bf16): int8 against bf16, relative L2 {rel:.4f} (tol "
+        f"{INT8_FORWARD_REL}), cosine {cos:.5f} (tol {INT8_FORWARD_COS}) over valid frames")
+    check(rel < INT8_FORWARD_REL and cos > INT8_FORWARD_COS, f"int8 forward diverged from bf16: rel {rel}, cos {cos}")
+    mels = [e.bucket_program(cond, cl, ids, dur, steps=10, cfg_strength=2.0, y0=y0)[0] for e in (engine, plain)]
+    gen0 = gen.roll(-pref, 1)  # the program rolls the generated frames to the origin
+    rel, cos = rel_cos(mels[0], mels[1], gen0)
+    log(f"parity, one solve from the same y0 (Ralston NFE 20, CFG 2): int8 against bf16 engine, generated mel "
+        f"relative L2 {rel:.4f} (tol {INT8_SOLVE_REL}), cosine {cos:.5f} (tol {INT8_SOLVE_COS}) over generated frames")
+    check(rel < INT8_SOLVE_REL and cos > INT8_SOLVE_COS, f"int8 solve diverged from bf16: rel {rel}, cos {cos}")
+    del plain, fwd, mels
+    torch.cuda.empty_cache()
+
+    # strict: the estimate of every row, escalation past the threshold
+    strict = counted("int8 strict request", "serve_int8", lambda: engine.synthesize(
+        "A strict request estimates its own solver error.", ref, 24000, ref_text, seed=8, quality="strict"))
+    log(f"strict: estimates {engine.last_estimates} against threshold {engine.cfg.strict_threshold}; "
+        f"escalations {engine.escalations}; {len(strict[0]) / 24000:.3f} s of audio")
+    check(len(engine.last_estimates) == 1 and all(np.isfinite(e) and e > 0 for e in engine.last_estimates.values()),
+          "strict request recorded no estimate")
+    check(engine.escalations == sum(e > engine.cfg.strict_threshold for e in engine.last_estimates.values()),
+          "escalation count does not follow the estimates")
+    check(bool(np.isfinite(strict[0]).all()) and len(strict[0]) > 0, "strict wave not finite")
+
+    # synthesize_batch: three chunks of one voice as one batched solve
+    row = plan.rows[0]
+    chunks = ["the first chunk.", "a second, longer chunk of text.", "and a third."]
+    durations = [row.ref_frames + 150, row.ref_frames + 220, row.ref_frames + 120]  # all in the 512 bucket
+    waves, mels = counted("int8 synthesize_batch", "serve_int8", lambda: engine.synthesize_batch(
+        chunks, row.cond_mel, row.ref_frames, ref_text + " ", durations, steps=10, cfg_strength=2.0, seed=9))
+    check([len(m_) for m_ in mels] == [d - row.ref_frames for d in durations], "synthesize_batch mel lengths")
+    check(all(len(w) == engine._wave_samples(len(m_)) and np.isfinite(w).all() and np.abs(w).max() > 0
+              for w, m_ in zip(waves, mels)), "synthesize_batch waves")
+    check(solves == [(20, 4)], f"synthesize_batch did not run as one solve of the batch-4 bucket: {solves}")
+
+    # streaming: the concatenated segments against synthesize's wave, same seed
+    long_text = ("Streaming hands back each chunk as its solve ends, so the first audio arrives early. " * 5).strip()
+    full = counted("int8 synthesize (batched chunks)", "serve_int8",
+                   lambda: engine.synthesize(long_text, ref, 24000, ref_text, seed=10))[0]
+    t0 = time.perf_counter()
+    first = [None]
+
+    def stream():
+        out = []
+        for seg in engine.synthesize_streaming(long_text, ref, 24000, ref_text, seed=10):
+            first[0] = first[0] or time.perf_counter() - t0
+            out.append(seg)
+        return out
+
+    segments = counted("int8 synthesize_streaming", "serve_int8", stream)
+    joined = np.concatenate(segments)
+    check(joined.shape == full.shape and len(segments) > 1, f"stream {joined.shape} in {len(segments)} segments vs {full.shape}")
+    rel_rms = float(np.sqrt(np.mean((joined - full) ** 2)) / np.sqrt(np.mean(full**2)))
+    log(f"streaming: {len(segments)} segments of {[len(s_) for s_ in segments]} samples, first after {first[0]:.3f} s, "
+        f"all after {time.perf_counter() - t0:.3f} s; against synthesize's wave (chunks solved as one batch): max abs "
+        f"difference {float(np.abs(joined - full).max()):.3e} at a peak of {float(np.abs(full).max()):.3f}, RMS of "
+        f"the difference over the wave's RMS {rel_rms:.3e} (tol {STREAM_REL_RMS})")
+    check(rel_rms <= STREAM_REL_RMS, f"streamed wave differs from synthesize's: {rel_rms}")
+    del engine
+    torch.cuda.empty_cache()
+
+    # the bench geometry at int8, beside the bf16 figure of this run
+    for w in wrappers.values():
+        w.launches = 0
+    int8_bench = bench_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card, quantization="int8")
+    for name, w in wrappers.items():
+        launches[name]["bench_int8"] = w.launches
+    forwards = 5 * 20  # a warm call, the profiled call and three timed ones, 20 forwards each
+    check(quant_matmul.launches == per_forward["quant_matmul"] * forwards, "int8 bench quant_matmul launch count")
+    gemm_bf16, gemm_int8 = bf16_bench["launch_counts"].get("gemm", 0), int8_bench["launch_counts"].get("gemm", 0)
+    moved = per_forward["quant_matmul"] * 20
+    log(f"int8 against bf16 at the bench geometry on {card}: {int8_bench['audio_s_per_s']:.2f} against "
+        f"{bf16_bench['audio_s_per_s']:.2f} audio-s/s (median solve {int8_bench['median_s']:.4f} against "
+        f"{bf16_bench['median_s']:.4f} s); library GEMM launches per solve {gemm_int8} against {gemm_bf16}, "
+        f"quant_matmul launches per solve {int8_bench['launch_counts'].get('quant_matmul', 0)} (want {moved})")
+    check(int8_bench["launch_counts"].get("quant_matmul", 0) == moved and gemm_int8 == gemm_bf16 - moved,
+          "the six linears of every block did not all move from library GEMMs to quant_matmul")
+
+
+BENCH_FAMILIES = (("flash_attention", ("flash_fwd",)), ("conv_pos", ("conv_wmma", "conv_generic")),
+                  ("quant_matmul", ("quant_matmul_kernel",)))
+
+
+def bench_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card: str, quantization: str = "none") -> dict:
+    """One bucket program at the bench geometry, profiled once and timed three
+    times. Returns the audio-s/s, the median seconds and the profile's launch
+    counts by kernel family."""
     from f5tts_tpu_torch.engine.engine import EngineConfig, TTSEngine
     from f5tts_tpu_torch.sampling.euler import DEFAULT_NFE, nfe_to_steps
 
     batch, n, ref_frames, text_pad = 8, 1024, 128, 512
     steps = nfe_to_steps(DEFAULT_NFE["ralston"], "ralston")
     engine = TTSEngine(dit_np, dit_cfg, voc_np, tok, EngineConfig(
-        vocoder=voc_cfg, duration_buckets=(n,), batch_buckets=(batch,), text_pad=text_pad), device=dev)
+        vocoder=voc_cfg, duration_buckets=(n,), batch_buckets=(batch,), text_pad=text_pad,
+        quantization=quantization), device=dev)
     rng = np.random.default_rng(0)
     cond = torch.as_tensor(rng.standard_normal((batch, n, 100)), dtype=torch.float32, device=dev)
     cond_lens = torch.full((batch,), ref_frames, dtype=torch.int32, device=dev)
@@ -486,7 +786,8 @@ def bench_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card: str) -> None:
         return float(wave[:, :64].sum())  # host fetch: the solve has finished
 
     run()
-    profile_by_family("one bench solve", run, (("flash_attention", ("flash_fwd",)), ("conv_pos", ("conv_wmma", "conv_generic"))))
+    what = "bf16" if quantization == "none" else quantization
+    _, counts = profile_by_family(f"one bench solve ({what})", run, BENCH_FAMILIES)
     iters = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -494,8 +795,9 @@ def bench_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card: str) -> None:
         iters.append(time.perf_counter() - t0)
     dt = statistics.median(iters)
     audio_s = batch * (n - ref_frames) / (24000 / 256)
-    log(f"bench geometry on {card}: batch {batch}, bucket {n}, ref {ref_frames}, ralston NFE 20, CFG 2, bf16: "
+    log(f"bench geometry on {card}: batch {batch}, bucket {n}, ref {ref_frames}, ralston NFE 20, CFG 2, {what}: "
         f"iter_s {[round(t, 4) for t in iters]}, median {dt:.4f} s, {audio_s / dt:.2f} audio-s/s")
+    return {"audio_s_per_s": audio_s / dt, "median_s": dt, "launch_counts": counts}
 
 
 COMMON_FAMILIES = (("gemm", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "splitK")), ("reduction", ("reduce_kernel",)),
@@ -503,10 +805,11 @@ COMMON_FAMILIES = (("gemm", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "splitK
 
 
 def profile_by_family(what: str, run, families, *, top: int = 6, device_only: bool = False,
-                      wall_plain_ms: float | None = None) -> None:
+                      wall_plain_ms: float | None = None) -> tuple[dict, dict]:
     """Device time of one call of ``run`` (which ends synchronised) by kernel
     family (``torch.profiler``, kernels only) and the device's busy share of
-    the wall time (single stream: kernels do not overlap). ``families`` come
+    the wall time (single stream: kernels do not overlap); returns the device
+    milliseconds and the launch counts by family. ``families`` come
     before the common ones; ``device_only`` records no host events (a call
     with hundreds of thousands of launches); ``wall_plain_ms`` is the same
     call's wall time without the profiler, to state the busy share against."""
@@ -538,6 +841,7 @@ def profile_by_family(what: str, run, families, *, top: int = 6, device_only: bo
         log(f"  {fam}: {ms:.1f} ms ({100 * ms / busy:.1f}% of kernel time), {counts[fam]} launches")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"  kernel {e.key[:80]!r}: {e.self_device_time_total / 1e3:.1f} ms, {e.count} launches")
+    return sums, counts
 
 
 # ---------------------------------------------------------------------------
@@ -930,7 +1234,8 @@ def main():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"  [{name}] {line.strip()}")
 
-    kernels = [attention_phase(dev), conv_phase(dev), *train_kernel_phase(dev), decode_attention_phase(dev)]
+    kernels = [attention_phase(dev), conv_phase(dev), *train_kernel_phase(dev), decode_attention_phase(dev),
+               quant_matmul_phase(dev)]
     launches = {k["name"]: {} for k in kernels}  # kernel -> path -> launches, each path's counts set to 0 before it
     if not args.kernels_only:
         from f5tts_tpu_torch.models.convert import init_dit_numpy, init_vocos_numpy
@@ -942,7 +1247,8 @@ def main():
         dit_cfg, voc_cfg = DiTConfig(text_num_embeds=tok.vocab_size), VocosConfig()  # F5-TTS Base + Vocos
         dit_np, voc_np = init_dit_numpy(dit_cfg, seed=0), init_vocos_numpy(voc_cfg, seed=1)
         engine_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, launches)
-        bench_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card)
+        bf16_bench = bench_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card)
+        int8_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card, launches, bf16_bench)
         del dit_np, voc_np
         train_phase(dev, dit_cfg, TRAIN_SHAPES, tok, card, launches)  # F5-TTS Base, dropout 0.1, kernels
         parler_phase(dev, card, launches)  # indic-parler-tts width and depth, random weights
@@ -952,7 +1258,8 @@ def main():
     log(card_line())
     log(json.dumps({"kernels": [{key: k[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-        "bound_by", "library_ms", "launches_by_path", *(("other_shapes",) if "other_shapes" in k else ()))}
+        "bound_by", "library_ms", "launches_by_path",
+        *(key for key in ("int_mm_ms", "bf16_matmul_ms", "mma_sync_s8_top_s", "other_shapes") if key in k))}
         for k in kernels]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

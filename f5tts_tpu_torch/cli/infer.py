@@ -38,6 +38,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--speed", type=float, default=1.0)
     p.add_argument("--cross-fade", type=float, default=0.15)
     p.add_argument("--seed", type=int, default=None, help="noise seed")
+    p.add_argument("--quality", default="default", choices=["default", "strict"],
+                   help="strict: estimate each row's solver error and re-solve rows over the engine's threshold "
+                        "with the exact reference recipe (euler, 32 steps)")
     p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return p
@@ -110,7 +113,7 @@ def main(argv=None):
     wave, sr, _ = engine.synthesize(
         args.gen_text, ref_audio, ref_sr, ref_text,
         speed=args.speed, nfe_step=args.nfe or None, cfg_strength=args.cfg_strength,
-        seed=args.seed, cross_fade_duration=args.cross_fade,
+        seed=args.seed, cross_fade_duration=args.cross_fade, quality=args.quality,
     )
     write_wav(args.output, wave, sr)
     print(f"wrote {args.output}: {len(wave) / sr:.2f}s at {sr} Hz")

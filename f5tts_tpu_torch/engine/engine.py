@@ -11,11 +11,17 @@ clip -> waveform.
   generated frames to the origin and zero past each row's generated length
   -> ``vocos_decode``.
 
+- **Strict quality.** Rows with ``quality="strict"`` solve with the sampler's
+  embedded error estimate; a row whose estimate exceeds ``strict_threshold``
+  is solved again with the exact reference recipe (euler, 32 steps).
+
 The engine keeps a bf16 serving copy of the parameters and runs the DiT with
 ``attn_impl="flash"`` and ``conv_pos_impl="fused"``: on a GPU those are the
-hand-written CUDA kernels, on the CPU their plain versions. Edit rows,
-``quality="strict"`` escalation, streaming and multi-device serving are not
-ported yet.
+hand-written CUDA kernels, on the CPU their plain versions. With
+``quantization="int8"`` the blocks' six linears are quantized after the dtype
+cast (W8A8, ``models/dit.py:quantize_dit_params``) and run through the
+``quant_matmul`` kernel. Edit rows, the BigVGAN vocoder, dispatch/fetch
+pipelining and multi-device serving are not ported yet.
 """
 
 from __future__ import annotations
@@ -27,13 +33,13 @@ import numpy as np
 import torch
 
 from f5tts_tpu_torch.audio.preprocess import TARGET_RMS, TARGET_SR, normalize_rms, resample
-from f5tts_tpu_torch.audio.stitch import crossfade_concat
+from f5tts_tpu_torch.audio.stitch import crossfade_concat, crossfade_pair
 from f5tts_tpu_torch.models.convert import dit_params_from_numpy, vocos_params_from_numpy
-from f5tts_tpu_torch.models.dit import DiTConfig
+from f5tts_tpu_torch.models.dit import DiTConfig, quantize_dit_params
 from f5tts_tpu_torch.models.vocos import VocosConfig, vocos_decode
 from f5tts_tpu_torch.ops.mel import MelConfig, bucketed_log_mel
-from f5tts_tpu_torch.sampling.euler import (SamplerConfig, default_time_grid, nfe_to_steps, sample_cfm,
-                                            serving_default_sampler)
+from f5tts_tpu_torch.sampling.euler import (EVALS_PER_STEP, SamplerConfig, default_time_grid, nfe_to_steps,
+                                            sample_cfm, serving_default_sampler)
 from f5tts_tpu_torch.text.chunker import chunk_text, chunk_text_packed, duration_frames, max_chars_for_ref
 from f5tts_tpu_torch.text.tokenizer import Tokenizer
 from f5tts_tpu_torch.utils.device import resolve_device
@@ -52,6 +58,7 @@ class EngineConfig:
     text_pad: int = 512
     max_duration: int = 4096
     compute_dtype: str = "bfloat16"
+    quantization: str = "none"  # "none" | "int8" (W8A8 dynamic, serving-only)
     cross_fade_duration: float = 0.15
     target_rms: float = TARGET_RMS
     speed: float = 1.0
@@ -62,12 +69,19 @@ class EngineConfig:
     # cap each chunk so ref + generated frames fit this bucket (None = the
     # reference's ~25 s byte budget)
     chunk_frames_budget: int | None = 1024
+    # quality="strict": a row whose embedded-error estimate (RMSE over its
+    # generated frames of the accumulated RK2-vs-Euler disagreement) exceeds
+    # this is solved again with the exact reference recipe (euler, 32 steps);
+    # the JAX package's calibrated value
+    strict_threshold: float = 0.12
     min_chunk_gen_frames: int = 256
     chunk_pack_words: bool = True
 
     def __post_init__(self):
         if self.compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}, got {self.compute_dtype!r}")
+        if self.quantization not in ("none", "int8"):
+            raise ValueError(f"quantization must be 'none' or 'int8', got {self.quantization!r}")
         # drop caps of absent buckets and snap each cap down to a batch bucket
         caps = []
         for nb, cap in self.solve_batch_caps:
@@ -96,6 +110,7 @@ class RowSpec:
     steps: int = 32
     cfg_strength: float = 2.0
     seed: int | None = None
+    quality: str = "default"  # "default" | "strict" (estimate, escalate past the threshold)
 
 
 @dataclass
@@ -116,11 +131,19 @@ class TTSEngine:
         self.device = resolve_device(device)
         self.compute_dtype = _DTYPES[cfg.compute_dtype]
         self.dit_params = dit_params_from_numpy(dit_params, self.device, self.compute_dtype)
+        if cfg.quantization == "int8":
+            # after the dtype cast, on the device: the scales come from the
+            # weights as served (rounded to bf16) and stay fp32
+            self.dit_params = quantize_dit_params(self.dit_params)
         self.vocos_params = vocos_params_from_numpy(vocos_params, self.device, self.compute_dtype)
         self.dit_cfg = dataclasses.replace(dit_cfg, attn_impl="flash", conv_pos_impl="fused")
         self.tokenizer = tokenizer
         self.cfg = cfg
         self._host_rng = np.random.default_rng()
+        # quality="strict" observability: recipe escalations so far, and the
+        # last synthesize_rows call's per-row embedded-error estimates
+        self.escalations = 0
+        self.last_estimates: dict[int, float] = {}
 
     # ------------------------------------------------------------------
     # host-side planning
@@ -151,20 +174,11 @@ class TTSEngine:
         """Samples produced for n mel frames: the centered iSTFT yields (n-1)*hop."""
         return max((n_frames - 1) * self.cfg.mel.hop_length, 0)
 
-    def prepare_request(self, gen_text: str, ref_audio: np.ndarray, ref_sr: int, ref_text: str, *,
-                        speed: float | None = None, fix_duration_secs: float | None = None,
-                        nfe_step: int | None = None, cfg_strength: float | None = None,
-                        seed: int | None = None, cross_fade_duration: float | None = None,
-                        quality: str = "default") -> RequestPlan:
-        """Reference conditioning, chunking and durations -> the rows to synthesize."""
-        if quality != "default":
-            raise NotImplementedError("quality='strict' escalation is not ported to the PyTorch engine yet")
+    def _prepare_reference(self, gen_text: str, ref_audio: np.ndarray, ref_sr: int, ref_text: str, speed: float):
+        """Reference conditioning and chunking, shared by the batch and the
+        streaming path so both see the same chunks: ``(cond_mel[:ref_frames],
+        ref_frames, ref_text, rms, chunks)``."""
         cfg = self.cfg
-        speed = speed if speed is not None else cfg.speed
-        steps = nfe_to_steps(nfe_step, cfg.sampler.method) if nfe_step is not None else cfg.sampler.steps
-        guidance = cfg_strength if cfg_strength is not None else cfg.sampler.cfg_strength
-        xfade = cross_fade_duration if cross_fade_duration is not None else cfg.cross_fade_duration
-
         if ref_audio.ndim == 2:
             ref_audio = ref_audio.mean(axis=0)
         ref_audio, rms = normalize_rms(ref_audio, cfg.target_rms)
@@ -175,14 +189,29 @@ class TTSEngine:
             ref_text = ref_text + " "
         ref_frames = len(ref_audio) // cfg.mel.hop_length
         cond_mel = bucketed_log_mel(ref_audio, cfg.mel, device=self.device)
-
         chunks = self._chunk(gen_text, self._max_chunk_chars(ref_text, ref_secs, ref_frames, speed)) or [gen_text]
+        return cond_mel[:ref_frames], ref_frames, ref_text, rms, chunks
+
+    def prepare_request(self, gen_text: str, ref_audio: np.ndarray, ref_sr: int, ref_text: str, *,
+                        speed: float | None = None, fix_duration_secs: float | None = None,
+                        nfe_step: int | None = None, cfg_strength: float | None = None,
+                        seed: int | None = None, cross_fade_duration: float | None = None,
+                        quality: str = "default") -> RequestPlan:
+        """Reference conditioning, chunking and durations -> the rows to synthesize."""
+        if quality not in ("default", "strict"):
+            raise ValueError(f"quality must be default|strict, got {quality!r}")
+        cfg = self.cfg
+        speed = speed if speed is not None else cfg.speed
+        steps = nfe_to_steps(nfe_step, cfg.sampler.method) if nfe_step is not None else cfg.sampler.steps
+        guidance = cfg_strength if cfg_strength is not None else cfg.sampler.cfg_strength
+        xfade = cross_fade_duration if cross_fade_duration is not None else cfg.cross_fade_duration
+        cond_mel, ref_frames, ref_text, rms, chunks = self._prepare_reference(gen_text, ref_audio, ref_sr, ref_text, speed)
         rows = [
             RowSpec(
-                text=ref_text + c, cond_mel=cond_mel[:ref_frames], ref_frames=ref_frames,
+                text=ref_text + c, cond_mel=cond_mel, ref_frames=ref_frames,
                 duration=min(duration_frames(ref_frames, ref_text, c, speed, fix_duration_secs,
                                              cfg.mel.sample_rate, cfg.mel.hop_length), cfg.max_duration),
-                steps=steps, cfg_strength=guidance, seed=seed,
+                steps=steps, cfg_strength=guidance, seed=seed, quality=quality,
             )
             for c in chunks
         ]
@@ -203,6 +232,79 @@ class TTSEngine:
         plan = self.prepare_request(gen_text, ref_audio, ref_sr, ref_text, **kw)
         return self.finalize_request(plan, self.synthesize_rows(plan.rows))
 
+    def synthesize_streaming(self, gen_text: str, ref_audio: np.ndarray, ref_sr: int, ref_text: str, *,
+                             speed: float | None = None, nfe_step: int | None = None,
+                             cfg_strength: float | None = None, seed: int | None = None,
+                             cross_fade_duration: float | None = None):
+        """Generator of waveform segments, one per text chunk as its solve
+        finishes: time to first audio is one chunk, not the whole utterance.
+        Crossfade regions are blended across yields; the concatenated yields
+        are the non-streaming output (each chunk solved alone instead of in a
+        batch, so up to the rounding of a batch-1 solve)."""
+        cfg = self.cfg
+        speed = speed if speed is not None else cfg.speed
+        steps = nfe_to_steps(nfe_step, cfg.sampler.method) if nfe_step is not None else cfg.sampler.steps
+        guidance = cfg_strength if cfg_strength is not None else cfg.sampler.cfg_strength
+        xfade = cross_fade_duration if cross_fade_duration is not None else cfg.cross_fade_duration
+        n_fade = int(xfade * TARGET_SR)
+        cond_mel, ref_frames, ref_text, rms, chunks = self._prepare_reference(gen_text, ref_audio, ref_sr, ref_text, speed)
+
+        pending: np.ndarray | None = None
+        for ci, c in enumerate(chunks):
+            dur = min(duration_frames(ref_frames, ref_text, c, speed, None, cfg.mel.sample_rate, cfg.mel.hop_length),
+                      cfg.max_duration)
+            row = RowSpec(text=ref_text + c, cond_mel=cond_mel, ref_frames=ref_frames, duration=dur, steps=steps,
+                          cfg_strength=guidance, seed=seed)
+            wave = self.synthesize_rows([row])[0][0]
+            if rms < cfg.target_rms:
+                wave = wave * rms / cfg.target_rms
+            merged = wave if pending is None else crossfade_pair(pending, wave, min(n_fade, len(pending), len(wave)))
+            if ci < len(chunks) - 1 and n_fade > 0:
+                yield merged[:-n_fade] if len(merged) > n_fade else merged[:0]
+                pending = merged[-n_fade:]
+            else:
+                yield merged
+                pending = None
+        if pending is not None and len(pending):
+            yield pending
+
+    def synthesize_batch(self, chunks: list[str], cond_mel: np.ndarray, ref_frames: int, ref_text: str,
+                         durations: list[int], *, steps: int, cfg_strength: float,
+                         seed: int | None = None) -> tuple[list[np.ndarray], list[np.ndarray]]:
+        """One request's chunks as batched rows (input order kept): (waves, mels)."""
+        rows = [RowSpec(text=ref_text + c, cond_mel=cond_mel, ref_frames=ref_frames, duration=d, steps=steps,
+                        cfg_strength=cfg_strength, seed=seed) for c, d in zip(chunks, durations)]
+        out = self.synthesize_rows(rows)
+        return [w for w, _ in out], [m_ for _, m_ in out]
+
+    def warmup(self, buckets: list[tuple[int, int]] | None = None, *, nfe_step: int | None = None,
+               cfg_strength: float | None = None) -> None:
+        """Pay the first-use costs before the first request: build and load
+        the engine's CUDA kernels (on a GPU) and run each (duration, batch)
+        bucket's program once. ``nfe_step`` counts model evals per guidance
+        branch, as in ``prepare_request``. There is nothing to compile: eager
+        PyTorch runs any shape, so this only warms allocator and library state."""
+        if self.device.type == "cuda":
+            from f5tts_tpu_torch.ops.kernels import _build
+
+            names = ["flash_attention", "conv_pos"] + (["quant_matmul"] if self.cfg.quantization == "int8" else [])
+            _build.build(names)
+            for name in names:
+                _build.load(name)
+        steps = nfe_to_steps(nfe_step, self.cfg.sampler.method) if nfe_step is not None else self.cfg.sampler.steps
+        guidance = cfg_strength if cfg_strength is not None else self.cfg.sampler.cfg_strength
+        caps = dict(self.cfg.solve_batch_caps)
+        dev = self.device
+        for nb, bb in buckets or [(self.cfg.duration_buckets[0], self.cfg.batch_buckets[0])]:
+            bb = min(bb, caps.get(nb, bb))  # synthesize_rows never runs more rows than the bucket's cap
+            _, wave = self.bucket_program(
+                torch.zeros((bb, nb, self.cfg.mel.n_mels), device=dev),
+                torch.full((bb,), 2, dtype=torch.int32, device=dev),
+                torch.full((bb, self.cfg.text_pad), -1, dtype=torch.int32, device=dev),
+                torch.full((bb,), nb, dtype=torch.int32, device=dev), np.zeros((bb,), np.int64),
+                steps=steps, cfg_strength=guidance)
+            float(wave[:, :1].sum())  # host fetch: the program has finished
+
     # ------------------------------------------------------------------
     # device program
     # ------------------------------------------------------------------
@@ -215,20 +317,36 @@ class TTSEngine:
             s, steps=steps, cfg_strength=cfg_strength,
             time_grid=s.time_grid if steps == s.steps else default_time_grid(s.method, steps))
 
+    def _supports_estimate(self) -> bool:
+        """quality="strict" needs the embedded 2-stage estimate: a 2-eval
+        integrator on the plain guidance path. With the euler recipe (or the
+        cached/interval accelerations) configured, strict is a no-op."""
+        smp = self.cfg.sampler
+        return (EVALS_PER_STEP.get(smp.method) == 2 and smp.cfg_cache_period == 1
+                and tuple(smp.cfg_interval) == (0.0, 1.0))
+
     @torch.no_grad()
     def bucket_program(self, cond: torch.Tensor, cond_lens: torch.Tensor, text: torch.Tensor,
                        duration: torch.Tensor, seeds=None, *, steps: int, cfg_strength: float,
-                       y0: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+                       y0: torch.Tensor | None = None, estimate: bool = False, recipe: bool = False):
         """One bucket's program on device tensors: ``cond (b, n, mel)``,
         ``cond_lens (b,)``, ``text (b, nt)``, ``duration (b,)``, per-row
         ``seeds`` or explicit noise ``y0 (b, n, mel)``. Returns (generated mel
         rolled to frame 0 and zeroed past each row's generated length, fp32
-        ``(b, n, mel)``; waveform ``(b, (n-1)*hop)`` fp32)."""
+        ``(b, n, mel)``; waveform ``(b, (n-1)*hop)`` fp32) and, with
+        ``estimate``, the per-row embedded error ``(b,)``. ``recipe`` solves
+        with the exact reference recipe (euler, 32 steps, sway -1) whatever
+        the engine's sampler: the escalation target."""
         n = cond.shape[1]
+        if recipe:
+            sampler = SamplerConfig(method="euler", steps=32, cfg_strength=cfg_strength, sway_sampling_coef=-1.0)
+        else:
+            sampler = self.request_sampler(steps, cfg_strength)
         mel_out = sample_cfm(
             self.dit_params, self.dit_cfg, cond=cond, cond_lens=cond_lens, text=text, duration=duration,
-            sampler=self.request_sampler(steps, cfg_strength), y0=y0, seeds=seeds,
-            compute_dtype=self.compute_dtype)
+            sampler=sampler, y0=y0, seeds=seeds, compute_dtype=self.compute_dtype, return_error_estimate=estimate)
+        if estimate:
+            mel_out, est = mel_out
         frames = torch.arange(n, device=cond.device)
         idx = (frames[None, :] + cond_lens[:, None]) % n
         gen = torch.gather(mel_out, 1, idx[..., None].expand(-1, -1, mel_out.shape[-1]))
@@ -236,7 +354,7 @@ class TTSEngine:
         gen = torch.where(frames[None, :, None] < gen_len[:, None, None], gen,
                           torch.zeros((), dtype=gen.dtype, device=gen.device))
         wave = vocos_decode(self.vocos_params, gen, self.cfg.vocoder, compute_dtype=self.compute_dtype)
-        return gen.float(), wave
+        return (gen.float(), wave, est) if estimate else (gen.float(), wave)
 
     def _pack_group(self, rows: list[RowSpec], sub: list[int], nb: int, bb: int):
         """Pack the rows at indices ``sub`` into padded host arrays; pad rows
@@ -262,30 +380,60 @@ class TTSEngine:
                 a[len(sub):] = a[0]
         return text_ids, cond, cond_lens, dur, seeds
 
-    def synthesize_rows(self, rows: list[RowSpec]) -> list[tuple[np.ndarray, np.ndarray]]:
-        """Row-level batched synthesis: rows may carry different reference
-        voices and durations. Rows group by (duration bucket, steps, cfg); each
-        group runs in capped batched solves. Returns per-row (wave, gen mel)."""
+    def _solve_groups(self, rows: list[RowSpec], groups: dict[tuple, list[int]], *, recipe: bool = False):
+        """Run each ``(bucket, steps, guidance) -> row indices`` group in capped
+        batched solves. Yields ``(row index, (wave, gen mel), estimate or None)``;
+        a solve estimates when a row of it is strict and the sampler can."""
         cfg = self.cfg
-        results: list[tuple[np.ndarray, np.ndarray] | None] = [None] * len(rows)
-        groups: dict[tuple, list[int]] = {}
-        for i, r in enumerate(rows):
-            nb = _bucket(max(r.duration, r.ref_frames + 2), cfg.duration_buckets)
-            groups.setdefault((nb, r.steps, r.cfg_strength), []).append(i)
         caps = dict(cfg.solve_batch_caps)
+        can_estimate = not recipe and self._supports_estimate()
+        dev = self.device
         for (nb, steps, guidance), idxs in groups.items():
             cap = min(caps.get(nb, cfg.batch_buckets[-1]), cfg.batch_buckets[-1])
             for start in range(0, len(idxs), cap):
                 sub = idxs[start : start + cap]
                 bb = _bucket(len(sub), cfg.batch_buckets)
+                want_est = can_estimate and any(rows[i].quality == "strict" for i in sub)
                 text_ids, cond, cond_lens, dur, seeds = self._pack_group(rows, sub, nb, bb)
-                dev = self.device
-                gen, wave = self.bucket_program(
+                out = self.bucket_program(
                     torch.as_tensor(cond, device=dev), torch.as_tensor(cond_lens, device=dev),
                     torch.as_tensor(text_ids, device=dev), torch.as_tensor(dur, device=dev), seeds,
-                    steps=steps, cfg_strength=guidance)
-                gen, wave = gen.cpu().numpy(), wave.cpu().numpy()
+                    steps=steps, cfg_strength=guidance, estimate=want_est, recipe=recipe)
+                gen, wave = out[0].cpu().numpy(), out[1].cpu().numpy()
+                est = out[2].cpu().numpy() if want_est else None
                 for row, i in enumerate(sub):
                     gen_len = int(dur[row]) - int(cond_lens[row])
-                    results[i] = (wave[row, : self._wave_samples(gen_len)], gen[row, :gen_len])
+                    yield (i, (wave[row, : self._wave_samples(gen_len)], gen[row, :gen_len]),
+                           None if est is None else float(est[row]))
+
+    def synthesize_rows(self, rows: list[RowSpec]) -> list[tuple[np.ndarray, np.ndarray]]:
+        """Row-level batched synthesis: rows may carry different reference
+        voices and durations. Rows group by (duration bucket, steps, cfg); each
+        group runs in capped batched solves. Returns per-row (wave, gen mel).
+
+        Rows with ``quality="strict"`` run with the error estimate; any whose
+        estimate exceeds ``cfg.strict_threshold`` is solved again with the
+        exact reference recipe (euler, 32 steps; the row's seed gives the same
+        noise) in a second pass."""
+        cfg = self.cfg
+        results: list[tuple[np.ndarray, np.ndarray] | None] = [None] * len(rows)
+        self.last_estimates = {}
+
+        def bucket_of(r: RowSpec) -> int:
+            return _bucket(max(r.duration, r.ref_frames + 2), cfg.duration_buckets)
+
+        groups: dict[tuple, list[int]] = {}
+        for i, r in enumerate(rows):
+            groups.setdefault((bucket_of(r), r.steps, r.cfg_strength), []).append(i)
+        escalate: dict[tuple, list[int]] = {}
+        for i, result, est in self._solve_groups(rows, groups):
+            results[i] = result
+            if est is not None:
+                self.last_estimates[i] = est
+                if rows[i].quality == "strict" and est > cfg.strict_threshold:
+                    escalate.setdefault((bucket_of(rows[i]), 32, rows[i].cfg_strength), []).append(i)
+        if escalate:
+            self.escalations += sum(len(v) for v in escalate.values())
+            for i, result, _ in self._solve_groups(rows, escalate, recipe=True):
+                results[i] = result
         return results  # type: ignore[return-value]

@@ -76,9 +76,11 @@ def export_trained_params(directory: str, path: str) -> None:
 
 def params_from_numpy(tree, device: torch.device | str, dtype: torch.dtype | None = None):
     """numpy tree -> torch tree on ``device``; floating leaves cast to ``dtype``
-    when given (the engine's bf16 serving copy), other leaves unchanged."""
+    when given (the engine's bf16 serving copy), other leaves unchanged: the
+    int8 weights ``w_q`` of a quantized tree, and their scales ``s_w``, which
+    stay fp32."""
     if isinstance(tree, dict):
-        return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
+        return {k: params_from_numpy(v, device, None if k == "s_w" else dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):  # the DAC's stages differ in width and are a list, not a stack
         return [params_from_numpy(v, device, dtype) for v in tree]
     if tree is None:

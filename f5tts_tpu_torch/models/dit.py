@@ -165,3 +165,17 @@ def dit_forward(
         h = m.linear(params["long_skip"], torch.cat([h, residual], dim=-1))
     h = m.adaln_zero_final(params["norm_out"], h, t)
     return m.linear(params["proj_out"], h)
+
+
+def quantize_dit_params(params):
+    """Int8-quantize the hot matmuls (q/k/v/out and feed-forward in/out of all
+    blocks, on their stacked depth axis); embeddings, convs, AdaLN and the
+    output projection stay floating. Serving-only: the quantized leaves are
+    not differentiable."""
+    blocks = params["blocks"]
+    q_blocks = {
+        **blocks,
+        "attn": {name: m.quantize_linear_params(blocks["attn"][name]) for name in ("to_q", "to_k", "to_v", "to_out")},
+        "ff": {name: m.quantize_linear_params(blocks["ff"][name]) for name in ("in", "out")},
+    }
+    return {**params, "blocks": q_blocks}

@@ -7,8 +7,9 @@ Linear ``w: (in, out)``, Conv1d kernel ``(width, in/groups, out)``, Embedding
 JAX code: tanh GELU in FeedForward, exact GELU in ConvNeXtV2, layer norm and
 the GRN norm in fp32, the reference's head-0-only flat RoPE.
 
-``attention(impl="flash")`` and ``conv_pos_embedding(impl="fused")`` go
-through the kernel wrappers (CUDA kernel on a GPU tensor, plain version on a
+``linear`` sends int8-quantized params (``w_q``, ``s_w``) through the
+``quant_matmul`` wrapper. ``attention(impl="flash")`` and
+``conv_pos_embedding(impl="fused")`` go through the kernel wrappers (CUDA kernel on a GPU tensor, plain version on a
 CPU tensor); ``impl="plain"`` calls the plain versions on any device.
 
 Training mode (``attention(training=True)``, ``dit_block(training=True)``)
@@ -30,14 +31,48 @@ from f5tts_tpu_torch.ops.attention import sdpa
 from f5tts_tpu_torch.ops.kernels.conv_pos import conv_pos, conv_pos_plain, conv_pos_train, mish  # noqa: F401 (mish: layer API)
 from f5tts_tpu_torch.ops.kernels.flash_attention import flash_attention
 from f5tts_tpu_torch.ops.kernels.flash_attention_train import flash_attention_train
+from f5tts_tpu_torch.ops.kernels.quant_matmul import kernel_layout, quant_matmul
 from f5tts_tpu_torch.ops.rope import apply_rotary, apply_rotary_per_head
 
 
 def linear(p, x):
+    if "w_q" in p:
+        return _linear_int8(p, x)
     y = x @ p["w"].to(x.dtype)
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
+
+
+def _linear_int8(p, x):
+    """W8A8 dynamic-quantized linear: per-out-channel weight scales ``s_w
+    (out,)``, per-token activation scales, int32 accumulation, through the
+    ``quant_matmul`` wrapper (one kernel launch on a GPU tensor) with this
+    function's floor in the JAX package: the scale at 1e-8, not the abs-max at
+    1e-6. Params: ``w_q`` int8 ``(in, out)``, ``s_w``, optional ``b``, and on a
+    GPU the kernel-layout copy ``w_qt``."""
+    k, n = p["w_q"].shape
+    y = quant_matmul(x.reshape(-1, k).contiguous(), p["w_q"], p["s_w"], w_qt=p.get("w_qt"),
+                     amax_floor=0.0, scale_floor=1e-8).reshape(*x.shape[:-1], n)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
+def quantize_linear_params(p):
+    """fp Linear params -> int8 symmetric per-out-channel quantized form
+    ``{w_q, s_w[, b]}``; leading (stacked-depth) axes are kept. On a GPU the
+    kernel's K-contiguous copy ``w_qt`` is made here, once."""
+    w = p["w"].float()
+    amax = w.abs().amax(-2)
+    s = torch.clamp_min(amax, 1e-8) / torch.full_like(amax, 127.0)
+    wq = torch.clamp(torch.round(w / s.unsqueeze(-2)), -127, 127).to(torch.int8)
+    out = {"w_q": wq, "s_w": s}
+    if wq.is_cuda:
+        out["w_qt"] = kernel_layout(wq)
+    if "b" in p:
+        out["b"] = p["b"]
+    return out
 
 
 def conv1d(p, x, groups: int = 1, padding: int = 0, dilation: int = 1):

@@ -5,4 +5,5 @@ tensors it launches its kernel or raises. Each keeps a launch count in a plain
 integer attribute (``wrapper.launches``).
 """
 
-KERNEL_SOURCES = ("flash_attention", "conv_pos", "flash_attention_train", "decode_attention")  # csrc/<name>.cu
+KERNEL_SOURCES = ("flash_attention", "conv_pos", "flash_attention_train", "decode_attention",
+                  "quant_matmul")  # csrc/<name>.cu

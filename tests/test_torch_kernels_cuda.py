@@ -13,6 +13,7 @@ from f5tts_tpu_torch.ops.kernels import conv_pos as t_conv
 from f5tts_tpu_torch.ops.kernels import decode_attention as t_dec
 from f5tts_tpu_torch.ops.kernels import flash_attention as t_flash
 from f5tts_tpu_torch.ops.kernels import flash_attention_train as t_train
+from f5tts_tpu_torch.ops.kernels import quant_matmul as t_quant
 from f5tts_tpu_torch.ops.rope import rotary_freqs
 
 
@@ -219,3 +220,83 @@ def test_parler_decode_through_the_kernel_matches_the_plain_path(dev):
                                         enc, enc_mask, 6, 0, prompt_ids=prompt, temperature=0.0, eos_token=-1)
         assert t_dec.decode_attention.launches - before == (2 * 2 * (6 + 2) if attn == "kernel" else 0)
     assert torch.equal(outs["kernel"][0], outs["plain"][0]) and torch.equal(outs["kernel"][1], outs["plain"][1])
+
+
+def _quant_case(dev, dtype, m, k, n):
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn((m, k), generator=g) * torch.exp(2.0 * torch.randn((m, 1), generator=g))
+    x[::17] = 0.0  # all-padding rows
+    w_q = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8)
+    s_w = torch.rand((n,), generator=g) * 0.01 + 1e-4
+    return x.to(dev, dtype), w_q.to(dev), s_w.to(dev)
+
+
+# bit-equal: exact integer products, and every fp32 step one correctly rounded
+# operation in the plain version's order. The first three shapes are the int8
+# engine's at the bench geometry (16 x 1024 rows of F5-TTS Base).
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", [(16384, 1024, 1024), (16384, 1024, 2048), (16384, 2048, 1024), (1000, 1024, 1024),
+                                   (77, 80, 48), (300, 4096, 64)])
+def test_quant_matmul_kernel_is_bit_equal_to_plain(dev, dtype, m, k, n):
+    x, w_q, s_w = _quant_case(dev, dtype, m, k, n)
+    w_qt = t_quant.kernel_layout(w_q)
+    for floors in (dict(amax_floor=1e-6, scale_floor=0.0), dict(amax_floor=0.0, scale_floor=1e-8)):
+        before = t_quant.quant_matmul.launches
+        out = t_quant.quant_matmul(x, w_q, s_w, w_qt=w_qt, **floors)
+        torch.cuda.synchronize()
+        assert t_quant.quant_matmul.launches == before + 1
+        assert out.shape == (m, n) and out.dtype == dtype
+        assert torch.equal(out, t_quant.quant_matmul_plain(x, w_q, s_w, **floors))
+
+
+@pytest.mark.cuda
+def test_quant_matmul_floors_and_the_quantized_linear(dev):
+    from f5tts_tpu_torch.models import modules as tm
+
+    x, w_q, s_w = _quant_case(dev, torch.bfloat16, 64, 256, 128)
+    x[1] = 1e-7  # abs-max under 1.27e-6: the two floors quantize it differently
+    w_qt = t_quant.kernel_layout(w_q)
+    a = t_quant.quant_matmul(x, w_q, s_w, w_qt=w_qt)
+    b = t_quant.quant_matmul(x, w_q, s_w, w_qt=w_qt, amax_floor=0.0, scale_floor=1e-8)
+    assert not torch.equal(a[1], b[1]) and torch.equal(a[2:], b[2:]) and float(a[0].abs().max()) == 0.0
+    g = torch.Generator().manual_seed(7)
+    p = {"w": (torch.randn((256, 128), generator=g) * 0.05).to(dev, torch.bfloat16),
+         "b": torch.randn((128,), generator=g).to(dev, torch.bfloat16)}
+    q = tm.quantize_linear_params(p)
+    assert set(q) == {"w_q", "s_w", "w_qt", "b"} and q["w_qt"].shape == (128, 256) and q["s_w"].dtype == torch.float32
+    before = t_quant.quant_matmul.launches
+    y = tm.linear(q, x.reshape(4, 16, 256))
+    assert t_quant.quant_matmul.launches == before + 1 and y.shape == (4, 16, 128)
+    ref = t_quant.quant_matmul_plain(x, q["w_q"], q["s_w"], amax_floor=0.0, scale_floor=1e-8) + q["b"]
+    assert torch.equal(y.reshape(64, 128), ref)
+
+
+@pytest.mark.cuda
+def test_quant_matmul_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    x, w_q, s_w = _quant_case(dev, torch.bfloat16, 32, 64, 32)
+    w_qt = t_quant.kernel_layout(w_q)
+    with pytest.raises(ValueError, match="w_qt"):
+        t_quant.quant_matmul(x, w_q, s_w)  # the kernel layout is made once, not per call
+    with pytest.raises(ValueError, match="kernel layout"):
+        t_quant.quant_matmul(x, w_q, s_w, w_qt=w_q)
+    with pytest.raises(ValueError, match="multiples of 16"):  # a bad K
+        t_quant.quant_matmul(x[:, :40].contiguous(), w_q[:40].contiguous(), s_w, w_qt=w_qt[:, :40].contiguous())
+    with pytest.raises(ValueError, match="multiples of 16"):  # a bad N
+        t_quant.quant_matmul(x, w_q[:, :24].contiguous(), s_w[:24].contiguous(), w_qt=w_qt[:24].contiguous())
+    with pytest.raises(TypeError):
+        t_quant.quant_matmul(x.half(), w_q, s_w, w_qt=w_qt)
+    with pytest.raises(TypeError):
+        t_quant.quant_matmul(x, w_q, s_w.bfloat16(), w_qt=w_qt)
+    with pytest.raises(ValueError, match="contiguous"):
+        t_quant.quant_matmul(x.t().contiguous().t(), w_q, s_w, w_qt=w_qt)
+    with pytest.raises(ValueError, match="shared memory"):
+        big = torch.zeros((8192, 16), dtype=torch.int8, device=dev)
+        t_quant.quant_matmul(torch.zeros((4, 8192), device=dev), big, s_w[:16].contiguous(),
+                             w_qt=t_quant.kernel_layout(big))
+    with pytest.raises(ValueError, match="floor"):
+        t_quant.quant_matmul(x, w_q, s_w, w_qt=w_qt, amax_floor=0.0, scale_floor=0.0)
+    with pytest.raises(RuntimeError, match="no backward"):
+        t_quant.quant_matmul(x.clone().requires_grad_(True), w_q, s_w, w_qt=w_qt)
+    with torch.no_grad():
+        t_quant.quant_matmul(x.clone().requires_grad_(True), w_q, s_w, w_qt=w_qt)

@@ -2,8 +2,10 @@
 with ``f5tts_tpu/sampling/euler.py`` on the CPU at a tiny DiT, with explicit
 noise ``y0`` (``jax.random`` noise cannot be reproduced in torch): fp32 atol
 1e-4 for euler and ralston with fused CFG 2 and ragged rows, and one bf16
-case held to a relative L2 bound. Also the port's own noise rule and the
-sampler's configuration helpers."""
+case held to a relative L2 bound; every reduced-guidance knob (interval, cache
+hold/extrapolate, null reuse), the embedded error estimate, ``knot_range``
+segments and ``time_grid_array`` at the same tolerance. Also the port's own
+noise rule and the sampler's configuration helpers."""
 
 import numpy as np
 import pytest
@@ -40,22 +42,30 @@ def setup():
     return params, data, y0
 
 
-def _run_jax(params, data, y0, sampler, dtype):
+def _run_jax(params, data, y0, sampler, dtype, **kw):
+    """``kw``: static extras of ``sample_cfm`` (``knot_range``, ``paste_back``,
+    ``return_error_estimate``); ``time_grid_array`` goes in as an array."""
     cfg = jd.DiTConfig(**TINY)
+    grid = kw.pop("time_grid_array", None)
 
     @jax.jit
-    def run(p, cond, cond_lens, text, duration, y0):
+    def run(p, cond, cond_lens, text, duration, y0, grid):
         return je.sample_cfm(p, cfg, cond=cond, cond_lens=cond_lens, text=text, duration=duration,
-                             sampler=sampler, y0=y0, compute_dtype=dtype)
+                             sampler=sampler, y0=y0, compute_dtype=dtype, time_grid_array=grid, **kw)
 
-    return np.asarray(run(params, *(jnp.asarray(data[k]) for k in ("cond", "cond_lens", "text", "duration")),
-                          jnp.asarray(y0)).astype(jnp.float32))
+    out = run(params, *(jnp.asarray(data[k]) for k in ("cond", "cond_lens", "text", "duration")), jnp.asarray(y0),
+              None if grid is None else jnp.asarray(grid))
+    return jax.tree.map(lambda a: np.asarray(a.astype(jnp.float32)), out)
 
 
-def _run_torch(params, data, y0, sampler, dtype):
+def _run_torch(params, data, y0, sampler, dtype, **kw):
     tp = t_convert.dit_params_from_numpy(params, "cpu", None if dtype == torch.float32 else dtype)
+    if kw.get("time_grid_array") is not None:
+        kw["time_grid_array"] = torch.as_tensor(kw["time_grid_array"])
     out = te.sample_cfm(tp, td.DiTConfig(**TINY), **{k: torch.as_tensor(v) for k, v in data.items()},
-                        sampler=sampler, y0=torch.as_tensor(y0), compute_dtype=dtype)
+                        sampler=sampler, y0=torch.as_tensor(y0), compute_dtype=dtype, **kw)
+    if isinstance(out, tuple):
+        return tuple(o.float().numpy() for o in out)
     return out.float().numpy()
 
 
@@ -111,5 +121,108 @@ def test_sampler_helpers_match_jax():
                                        np.asarray(je.sway_time_grid(steps, -1.0, dtype=dt_j).astype(jnp.float32)),
                                        atol=1e-7)
     for knob in (dict(cfg_interval=(0.2, 1.0)), dict(cfg_cache_period=2), dict(method="midpoint", cfg_null_reuse=True)):
-        with pytest.raises(NotImplementedError):
-            te.SamplerConfig(**knob)
+        assert te.SamplerConfig(**knob) == te.SamplerConfig(**knob)  # accepted, as the JAX config accepts them
+        je.SamplerConfig(**knob)
+    assert te.parse_cfg_interval("0.2, 0.9") == je.parse_cfg_interval("0.2, 0.9") == (0.2, 0.9)
+    with pytest.raises(ValueError, match="lo,hi"):
+        te.parse_cfg_interval("0.2")
+
+
+# every knob the JAX sampler has beyond the plain fused-CFG solve, at the
+# file's tolerance (fp32, atol/rtol 1e-4), through explicit noise
+KNOBS = {
+    "interval_euler": dict(steps=4, method="euler", cfg_interval=(0.3, 0.9)),
+    "interval_ralston_grid": dict(steps=3, method="ralston", cfg_interval=(0.0, 0.5), time_grid=(0.0, 0.2, 0.6, 1.0)),
+    "cache_hold_with_remainder": dict(steps=5, method="euler", cfg_cache_period=2),
+    "cache_extrapolate": dict(steps=6, method="euler", cfg_cache_period=3, cfg_cache_mode="extrapolate"),
+    "cache_extrapolate_grid": dict(steps=4, method="euler", cfg_cache_period=2, cfg_cache_mode="extrapolate",
+                                   time_grid=(0.0, 0.1, 0.35, 0.7, 1.0)),
+    "null_reuse_midpoint": dict(steps=2, method="midpoint", cfg_null_reuse=True),
+    "null_reuse_rk4": dict(steps=1, method="rk4", cfg_null_reuse=True),
+    "cache_without_guidance": dict(steps=3, method="euler", cfg_cache_period=2, cfg_strength=0.0),
+}
+
+
+@pytest.mark.parametrize("knob", sorted(KNOBS))
+def test_sample_cfm_guidance_knobs_match_jax(setup, knob):
+    params, data, y0 = setup
+    kw = {"cfg_strength": 2.0, **KNOBS[knob]}
+    ref = _run_jax(params, data, y0, je.SamplerConfig(**kw), jnp.float32)
+    out = _run_torch(params, data, y0, te.SamplerConfig(**kw), torch.float32)
+    np.testing.assert_allclose(out, ref, atol=1e-4, rtol=1e-4)
+    plain = _run_torch(params, data, y0, te.SamplerConfig(steps=kw["steps"], method=kw["method"],
+                                                          cfg_strength=kw["cfg_strength"],
+                                                          time_grid=kw.get("time_grid")), torch.float32)
+    if knob != "cache_without_guidance":  # the knob changes the solve (it is not silently ignored)
+        assert np.abs(out - plain).max() > 1e-3
+    else:
+        np.testing.assert_array_equal(out, plain)
+
+
+@pytest.mark.parametrize("method,reuse", [("ralston", False), ("heun", False), ("midpoint", True)])
+def test_error_estimate_matches_jax(setup, method, reuse):
+    """The embedded RK2-vs-Euler estimate: the mel as without it, and the
+    per-row value against the JAX sampler's (rtol 1e-4)."""
+    params, data, y0 = setup
+    kw = dict(steps=3, method=method, cfg_strength=2.0, cfg_null_reuse=reuse)
+    ref_mel, ref_est = _run_jax(params, data, y0, je.SamplerConfig(**kw), jnp.float32, return_error_estimate=True)
+    mel, est = _run_torch(params, data, y0, te.SamplerConfig(**kw), torch.float32, return_error_estimate=True)
+    np.testing.assert_allclose(mel, ref_mel, atol=1e-4, rtol=1e-4)
+    assert est.shape == (2,) and (est > 0).all()
+    np.testing.assert_allclose(est, ref_est, rtol=1e-4)
+    np.testing.assert_array_equal(mel, _run_torch(params, data, y0, te.SamplerConfig(**kw), torch.float32))
+
+
+def test_knot_range_segments_and_time_grid_array_match_jax(setup):
+    params, data, y0 = setup
+    kw = dict(steps=4, method="ralston", cfg_strength=2.0)
+    full = _run_torch(params, data, y0, te.SamplerConfig(**kw), torch.float32)
+    # two segments, the first handing its raw state to the second
+    mid_j = _run_jax(params, data, y0, je.SamplerConfig(**kw), jnp.float32, knot_range=(0, 3), paste_back=False)
+    mid_t = _run_torch(params, data, y0, te.SamplerConfig(**kw), torch.float32, knot_range=(0, 3), paste_back=False)
+    np.testing.assert_allclose(mid_t, mid_j, atol=1e-4, rtol=1e-4)
+    end_t = _run_torch(params, data, mid_t, te.SamplerConfig(**kw), torch.float32, knot_range=(3, 4))
+    np.testing.assert_array_equal(end_t, full)  # the same steps in the same order
+    end_j = _run_jax(params, data, mid_j, je.SamplerConfig(**kw), jnp.float32, knot_range=(3, 4))
+    np.testing.assert_allclose(end_t, end_j, atol=1e-4, rtol=1e-4)
+    # the knots as an array
+    grid = np.array([0.0, 0.15, 0.5, 0.8, 1.0], np.float32)
+    ref = _run_jax(params, data, y0, je.SamplerConfig(**kw), jnp.float32, time_grid_array=grid)
+    out = _run_torch(params, data, y0, te.SamplerConfig(**kw), torch.float32, time_grid_array=grid)
+    np.testing.assert_allclose(out, ref, atol=1e-4, rtol=1e-4)
+    np.testing.assert_array_equal(out, _run_torch(params, data, y0, te.SamplerConfig(
+        **kw, time_grid=tuple(float(g) for g in grid)), torch.float32))
+    with pytest.raises(ValueError, match="out of bounds"):
+        _run_torch(params, data, y0, te.SamplerConfig(**kw), torch.float32, knot_range=(2, 5))
+
+
+# what the JAX config and sampler refuse, the port refuses with the same error type
+BAD_CONFIGS = [
+    dict(cfg_interval=(0.1, 0.5, 0.9)), dict(cfg_cache_period=0), dict(cfg_cache_mode="guess"),
+    dict(method="ralston", cfg_cache_period=2), dict(cfg_cache_period=2, cfg_interval=(0.2, 0.8)),
+    dict(method="rk5"), dict(method="euler", cfg_null_reuse=True),
+    dict(method="heun", cfg_null_reuse=True, cfg_interval=(0.2, 0.8)),
+]
+
+
+@pytest.mark.parametrize("bad", BAD_CONFIGS, ids=lambda b: "-".join(f"{k}={v}" for k, v in b.items()))
+def test_sampler_config_exclusions_match_jax(bad):
+    with pytest.raises(ValueError):
+        je.SamplerConfig(**bad)
+    with pytest.raises(ValueError):
+        te.SamplerConfig(**bad)
+
+
+@pytest.mark.parametrize("sampler_kw,call_kw", [
+    (dict(method="euler"), dict(return_error_estimate=True)),
+    (dict(method="rk4"), dict(return_error_estimate=True)),
+    (dict(method="euler", cfg_cache_period=2), dict(knot_range=(0, 1))),
+    (dict(method="heun", cfg_interval=(0.2, 0.8)), dict(return_error_estimate=True)),
+    (dict(method="euler", cfg_interval=(0.2, 0.8)), dict(time_grid_array=np.linspace(0, 1, 4, dtype=np.float32))),
+])
+def test_sample_cfm_refuses_what_jax_refuses(setup, sampler_kw, call_kw):
+    params, data, y0 = setup
+    with pytest.raises(ValueError):
+        _run_jax(params, data, y0, je.SamplerConfig(steps=3, **sampler_kw), jnp.float32, **dict(call_kw))
+    with pytest.raises(ValueError):
+        _run_torch(params, data, y0, te.SamplerConfig(steps=3, **sampler_kw), torch.float32, **dict(call_kw))
