@@ -12,7 +12,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    frames), max abs error on valid rows against a stated tolerance, median
    times over 20 runs (CUDA events) of the kernel, its plain version and one
    PyTorch library call of the same function, and the least time the card
-   could take (``bound_ms``);
+   could take (``bound_ms``); the serving attention also at the engine's long
+   buckets (2 rows x 16 heads at 2048 and 4096 frames);
 3. engine: ``TTSEngine.synthesize`` at F5-TTS Base width (random weights from a
    seed) for three requests, one of which chunks into several rows of the
    1024-frame bucket; the launch counts of each kernel, set to 0 just before,
@@ -72,7 +73,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
    solve, ``synthesize_streaming`` against ``synthesize``'s wave, then the
    bench geometry at int8 beside the bf16 figure of the same run, with a
    profile whose library-GEMM launches must drop by exactly the 2640 that
-   moved to quant_matmul.
+   moved to quant_matmul;
+11. attention-layout ablation (with phase 2): the kernel of the five layouts
+   of ``scripts/ablate_attention.py`` at BH 256, N 1024, D 64, bf16, BQ 64 and
+   128, zero bias and a -1e9 tail, against its fp32 plain version and the
+   unpacked kernel; the four shapes it refuses; then the ablation itself
+   (``f5tts_tpu_torch.scripts.ablate_attention.run``) at BQ 64 and 128: device
+   time per call of each layout, its ``mma.sync`` count (the kernel's own),
+   warps per SM, ``unpacked`` at the pair layouts' occupancy, the shipping
+   kernel and SDPA on the same inputs. Its launches must stay 0 through
+   phases 3-10.
 
 The last lines are the card's name and power limit, one ``{"kernels": [...]}``
 JSON line and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -204,20 +214,58 @@ def attention_phase(dev) -> dict:
         log(f"attention {dtype} rope_all={rope_all} n={nn_} all-masked row={dead_row}: max abs err {e2:.3e} (tol {tol})")
         check(e2 <= tol, f"flash_attention variant error {e2} > {tol}")
 
+    def library_call(q_, k_, v_, mask_, freqs_):  # SDPA on pre-roped q/k, the key mask as an additive bias
+        qr, kr = apply_rotary_per_head(q_[:, :1], freqs_), apply_rotary_per_head(k_[:, :1], freqs_)
+        qr, kr = torch.cat([qr, q_[:, 1:]], 1), torch.cat([kr, k_[:, 1:]], 1)
+        bias = torch.where(mask_, 0.0, -1e30)[:, None, None, :].to(q_.dtype)
+        return lambda: F.scaled_dot_product_attention(qr, kr, v_, attn_mask=bias)
+
+    def bound_of(b_, n_):
+        nbytes = 4 * b_ * h * n_ * d * 2 + b_ * n_ + 2 * n_ * d * 4  # q, k, v, o + mask + cos/sin tables
+        return bound_ms(4.0 * b_ * h * n_ * n_ * d, nbytes, PEAK_BF16_FLOPS)
+
     ms_kernel = time_ms(lambda: flash_attention(q, k, v, mask, rope_freqs=freqs))
     ms_plain = time_ms(lambda: flash_attention_plain(q, k, v, mask, freqs))
-    qr, kr = apply_rotary_per_head(q[:, :1], freqs), apply_rotary_per_head(k[:, :1], freqs)
-    qr, kr = torch.cat([qr, q[:, 1:]], 1), torch.cat([kr, k[:, 1:]], 1)
-    bias = torch.where(mask, 0.0, -1e30)[:, None, None, :].to(torch.bfloat16)
-    ms_lib = time_ms(lambda: F.scaled_dot_product_attention(qr, kr, v, attn_mask=bias))
-    flops = 4.0 * b * h * n * n * d
-    nbytes = 4 * b * h * n * d * 2 + b * n + 2 * n * d * 4  # q, k, v, o + mask + cos/sin tables
-    bms, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+    ms_lib = time_ms(library_call(q, k, v, mask, freqs))
+    bms, by = bound_of(b, n)
     log(f"attention times: kernel {ms_kernel:.4f} ms, plain {ms_plain:.4f} ms, "
         f"library (SDPA on pre-roped q/k) {ms_lib:.4f} ms, bound {bms:.4f} ms ({by})")
+    # where a launch's time goes: device time per call back to back in a CUDA graph (no host gaps), with and
+    # without the fused RoPE and the key mask
+    split = {what: time_graph_ms([fn] * 20) for what, fn in (
+        ("rope_mask", lambda: flash_attention(q, k, v, mask, rope_freqs=freqs)),
+        ("mask", lambda: flash_attention(q, k, v, mask)), ("neither", lambda: flash_attention(q, k, v)))}
+    log(f"attention device time per call in a CUDA graph of 20 calls: with head-0 RoPE and the key mask "
+        f"{split['rope_mask']:.4f} ms, the mask only {split['mask']:.4f} ms, neither {split['neither']:.4f} ms "
+        f"(one eager call through the wrapper: {ms_kernel:.4f} ms)")
+
+    # the engine's long buckets (EngineConfig.duration_buckets up to 4096 frames): 2 rows x 16 heads, bf16,
+    # head-0 RoPE, a ragged key mask, against the fp32 plain version
+    long = {}
+    for nl in (2048, 4096):
+        gl = torch.Generator(device="cpu").manual_seed(nl)
+        ql, kl, vl = (torch.randn((2, h, nl, d), generator=gl).to(dev, torch.bfloat16) for _ in range(3))
+        lens_l = torch.tensor([nl, int(torch.randint(nl // 2, nl, (1,), generator=gl))], device=dev)
+        ml = torch.arange(nl, device=dev)[None, :] < lens_l[:, None]
+        fl = torch.as_tensor(rotary_freqs(nl, d), device=dev)
+        ol = flash_attention(ql, kl, vl, ml, rope_freqs=fl)
+        torch.cuda.synchronize()
+        rl = flash_attention_plain(ql.float(), kl.float(), vl.float(), ml, fl)
+        el = float(((ol.float() - rl).abs() * ml[:, None, :, None]).max())
+        del rl, ol
+        torch.cuda.empty_cache()
+        ms_k, ms_l = time_ms(lambda: flash_attention(ql, kl, vl, ml, rope_freqs=fl)), time_ms(
+            library_call(ql, kl, vl, ml, fl))
+        bl, byl = bound_of(2, nl)
+        log(f"attention n={nl} (2 x 16 heads, bf16, head-0 RoPE, key lengths {lens_l.tolist()}): max abs err on valid "
+            f"rows {el:.3e} (tol {ATTN_TOL}); kernel {ms_k:.4f} ms, library (SDPA on pre-roped q/k) {ms_l:.4f} ms, "
+            f"bound {bl:.4f} ms ({byl})")
+        check(np.isfinite(el) and el <= ATTN_TOL, f"flash_attention n={nl} error {el} > {ATTN_TOL}")
+        long[f"b2_n{nl}"] = {"max_abs_err": el, "ms": ms_k, "library_ms": ms_l, "bound_ms": bl, "bound_by": byl}
     return {"name": "flash_attention", "route": "cuda", "source": "f5tts_tpu_torch/csrc/flash_attention.cu",
             "replaces": "f5tts_tpu/ops/pallas/flash_attention.py:250", "max_abs_err": err, "ms": ms_kernel,
-            "plain_ms": ms_plain, "bound_ms": bms, "bound_by": by, "library_ms": ms_lib}
+            "plain_ms": ms_plain, "bound_ms": bms, "bound_by": by, "library_ms": ms_lib, "graph_ms": split,
+            "other_shapes": long}
 
 
 def conv_phase(dev) -> dict:
@@ -492,6 +540,96 @@ def quant_matmul_phase(dev) -> dict:
             "replaces": "f5tts_tpu/ops/pallas/quant_matmul.py:36", "max_abs_err": worst, **rows["qkvo"],
             "mma_sync_s8_top_s": mma_rate,
             "other_shapes": {k: v for k, v in rows.items() if k != "qkvo"}}
+
+
+def ablate_attention_phase(dev) -> dict:
+    """The layout ablation's kernel (the d = 64 attention core in the five
+    layouts of ``scripts/ablate_attention.py``) at the ablation's shape, BH 256
+    (fused CFG at batch 8: 16 rows x 16 heads), N 1024, bf16: every layout at
+    BQ 64 and 128, with a zero bias and with the last quarter of the keys at
+    -1e9, against its fp32 plain version and against the unpacked kernel; the
+    shapes it refuses; then ``scripts/ablate_attention.run`` at BQ 64 (its
+    default) and 128, with the occupancy of each layout. Returns the kernel row
+    with the launches of the ablation path under ``ablation_launches``."""
+    from f5tts_tpu_torch.ops.kernels.ablate_attention import (LAYOUTS, ablate_attention, ablate_attention_plain,
+                                                              smem_bytes)
+    from f5tts_tpu_torch.scripts.ablate_attention import SDPA, SHIPPING, TOL_VS_UNPACKED, run
+
+    bh, n, d = 256, 1024, 64
+    g = torch.Generator(device="cpu").manual_seed(7)
+    q, k, v = (torch.randn((bh, n, d), generator=g).to(dev, torch.bfloat16) for _ in range(3))
+    zero = torch.zeros((1, 1, n), device=dev)
+    tail = zero.clone()
+    tail[..., 3 * n // 4:] = -1e9
+    worst = 0.0
+    for bias_name, bias in (("zero bias", zero), ("last quarter of the keys at -1e9", tail)):
+        for layout in LAYOUTS:
+            ref = ablate_attention_plain(layout, bias, q.float(), k.float(), v.float())
+            for bq in (64, 128):
+                out = ablate_attention(layout, bias, q, k, v, bq=bq)
+                torch.cuda.synchronize()
+                unpacked = out if layout == "unpacked" else ablate_attention("unpacked", bias, q, k, v, bq=bq)
+                err = float((out.float() - ref).abs().max())
+                vs = float((out.float() - unpacked.float()).abs().max())
+                worst = max(worst, err)
+                log(f"ablate_attention {layout} BQ {bq}, {bias_name}: max abs err vs fp32 plain {err:.3e} (tol "
+                    f"{ATTN_TOL}), vs the unpacked kernel {vs:.3e} (tol {TOL_VS_UNPACKED})")
+                check(np.isfinite(err) and err <= ATTN_TOL, f"ablate_attention {layout} BQ {bq} error {err}")
+                check(vs <= TOL_VS_UNPACKED, f"ablate_attention {layout} BQ {bq} differs from unpacked by {vs}")
+            del ref
+    torch.cuda.empty_cache()
+
+    # shapes the kernel does not take raise before any launch
+    small = [t[:4, :128].contiguous() for t in (q, k, v)]
+    b96, b128 = zero[..., :96].contiguous(), zero[..., :128].contiguous()
+    refused = (("an odd BH on a pair layout", ValueError,
+                lambda: ablate_attention("packed_blockdiag", b128, *(t[:3] for t in small))),
+               ("N % BQ != 0", ValueError,
+                lambda: ablate_attention("unpacked", b96, *(t[:, :96].contiguous() for t in small))),
+               ("d != 64", ValueError,
+                lambda: ablate_attention("unpacked", b128, *(t[..., :32].contiguous() for t in small))),
+               ("fp32", TypeError, lambda: ablate_attention("unpacked", b128, *(t.float() for t in small))))
+    before = ablate_attention.launches
+    for what, exc, call in refused:
+        try:
+            call()
+        except exc as e:
+            log(f"ablate_attention refuses {what}: {type(e).__name__}: {e}")
+        else:
+            check(False, f"ablate_attention took {what}")
+    check(ablate_attention.launches == before, "a refused shape launched the kernel")
+
+    # the ablation path: its launches counted from 0 and read right after
+    ablate_attention.launches = 0
+    runs = {bq: run(bh, n, bq, 50, 3, device=dev) for bq in (64, 128)}
+    launches = ablate_attention.launches
+    ablate_attention.launches = 0
+    check(launches > 0, "the ablation did not launch the kernel")
+    ms_plain = time_ms(lambda: ablate_attention_plain("unpacked", zero, q, k, v), iters=5, warmup=1)
+    bms, by = bound_ms(4.0 * bh * n * n * d, 4 * bh * n * d * 2 + n * 4, PEAK_BF16_FLOPS)  # q, k, v, o; bias
+    for bq, rows in runs.items():
+        by_name = {r["name"]: r for r in rows}
+        unp, ship = by_name["unpacked"]["ms"], by_name[SHIPPING]["ms"]
+        log(f"ablation at BQ {bq} (BH {bh}, N {n}, D 64, bf16, zero bias; device time per call in a CUDA graph of 50 "
+            f"chained calls, median of 3 replays; shared memory per block: "
+            f"{ {name: smem_bytes(name, bq) for name in LAYOUTS} } bytes):")
+        for r in rows:
+            extra = "" if r["mma"] is None else (
+                f", {r['mma']} mma.sync per call ({r['mma'] / by_name['unpacked']['mma']:.2f}x unpacked), "
+                f"{r['warps_per_sm']} warps per SM")
+            log(f"  {r['name']:>22}: {r['ms']:.4f} ms = {r['ms'] / unp:.3f}x unpacked, {r['ms'] / ship:.3f}x the "
+                f"shipping kernel, bound {100 * bms / r['ms']:.1f}% of it; max abs diff vs unpacked "
+                f"{r['max_abs_diff']:.4f}{extra}")
+    log(f"ablate_attention: plain unpacked {ms_plain:.4f} ms, bound {bms:.4f} ms ({by}: the true work 4 BH N^2 D, the "
+        f"same for every layout); {launches} launches on the ablation path")
+    main_rows = {r["name"]: r for r in runs[64]}
+    return {"name": "ablate_attention", "route": "cuda", "source": "f5tts_tpu_torch/csrc/ablate_attention.cu",
+            "replaces": "scripts/ablate_attention.py:177", "max_abs_err": worst, "ms": main_rows["unpacked"]["ms"],
+            "plain_ms": ms_plain, "bound_ms": bms, "bound_by": by, "library_ms": main_rows[SDPA]["ms"],
+            "layouts_ms": {name: main_rows[name]["ms"] for name in LAYOUTS},
+            "ablation_rows": {f"bq{bq}": {r["name"]: {key: r[key] for key in ("ms", "mma", "warps_per_sm")}
+                                          for r in rows} for bq, rows in runs.items()},
+            "ablation_launches": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -1212,7 +1350,8 @@ def parler_phase(dev, card: str, launches: dict) -> None:
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels-only", action="store_true",
-                    help="build and check the kernels, skip the engine, bench and training phases")
+                    help="build and check the kernels (and run the ablation), skip the engine, bench, int8, "
+                         "training and Parler phases")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
@@ -1234,9 +1373,12 @@ def main():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"  [{name}] {line.strip()}")
 
+    from f5tts_tpu_torch.ops.kernels.ablate_attention import ablate_attention
+
     kernels = [attention_phase(dev), conv_phase(dev), *train_kernel_phase(dev), decode_attention_phase(dev),
-               quant_matmul_phase(dev)]
+               quant_matmul_phase(dev), ablate_attention_phase(dev)]
     launches = {k["name"]: {} for k in kernels}  # kernel -> path -> launches, each path's counts set to 0 before it
+    launches["ablate_attention"]["ablation"] = kernels[-1].pop("ablation_launches")
     if not args.kernels_only:
         from f5tts_tpu_torch.models.convert import init_dit_numpy, init_vocos_numpy
         from f5tts_tpu_torch.models.dit import DiTConfig
@@ -1252,6 +1394,9 @@ def main():
         del dit_np, voc_np
         train_phase(dev, dit_cfg, TRAIN_SHAPES, tok, card, launches)  # F5-TTS Base, dropout 0.1, kernels
         parler_phase(dev, card, launches)  # indic-parler-tts width and depth, random weights
+        log(f"ablate_attention launches through the engine, int8, training and Parler phases: "
+            f"{ablate_attention.launches} (want 0)")
+        check(ablate_attention.launches == 0, "the ablation kernel ran on a serving or training path")
     for k in kernels:
         k["launches_by_path"] = launches[k["name"]]
         k["launches"] = sum(launches[k["name"]].values())
@@ -1259,7 +1404,8 @@ def main():
     log(json.dumps({"kernels": [{key: k[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
         "bound_by", "library_ms", "launches_by_path",
-        *(key for key in ("int_mm_ms", "bf16_matmul_ms", "mma_sync_s8_top_s", "other_shapes") if key in k))}
+        *(key for key in ("int_mm_ms", "bf16_matmul_ms", "mma_sync_s8_top_s", "graph_ms", "other_shapes",
+                          "layouts_ms", "ablation_rows") if key in k))}
         for k in kernels]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -6,4 +6,4 @@ integer attribute (``wrapper.launches``).
 """
 
 KERNEL_SOURCES = ("flash_attention", "conv_pos", "flash_attention_train", "decode_attention",
-                  "quant_matmul")  # csrc/<name>.cu
+                  "quant_matmul", "ablate_attention")  # csrc/<name>.cu

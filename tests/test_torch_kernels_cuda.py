@@ -9,6 +9,7 @@ also runs where JAX is absent:
 import pytest
 import torch
 
+from f5tts_tpu_torch.ops.kernels import ablate_attention as t_abl
 from f5tts_tpu_torch.ops.kernels import conv_pos as t_conv
 from f5tts_tpu_torch.ops.kernels import decode_attention as t_dec
 from f5tts_tpu_torch.ops.kernels import flash_attention as t_flash
@@ -300,3 +301,68 @@ def test_quant_matmul_wrapper_raises_on_what_the_kernel_does_not_take(dev):
         t_quant.quant_matmul(x.clone().requires_grad_(True), w_q, s_w, w_qt=w_qt)
     with torch.no_grad():
         t_quant.quant_matmul(x.clone().requires_grad_(True), w_q, s_w, w_qt=w_qt)
+
+
+def _ablate_case(dev, bh, n, tail_masked):
+    g = torch.Generator().manual_seed(8)
+    q, k, v = (torch.randn((bh, n, 64), generator=g).to(dev, torch.bfloat16) for _ in range(3))
+    bias = torch.zeros((1, 1, n), device=dev)
+    if tail_masked:
+        bias[..., 3 * n // 4:] = -1e9  # the last quarter of the keys
+    return bias, q, k, v
+
+
+# each layout against its plain version (fp32 on the same bf16 inputs) and against the unpacked kernel
+# (the JAX script's 0.05); the kernel's own count of the mma.sync it issued against the layout's design
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", t_abl.LAYOUTS)
+@pytest.mark.parametrize("n", [256, 1024])
+@pytest.mark.parametrize("bq", [64, 128])
+def test_ablate_attention_kernel_matches_plain(dev, layout, n, bq):
+    for tail_masked in (False, True):
+        bias, q, k, v = _ablate_case(dev, 8, n, tail_masked)
+        counted = torch.zeros(1, dtype=torch.int64, device=dev)
+        before = t_abl.ablate_attention.launches
+        out = t_abl.ablate_attention(layout, bias, q, k, v, bq=bq, mma_count=counted)
+        torch.cuda.synchronize()
+        assert t_abl.ablate_attention.launches == before + 1
+        assert out.shape == q.shape and out.dtype == torch.bfloat16
+        assert int(counted) == t_abl.mma_per_call(layout, 8, n)
+        ref = t_abl.ablate_attention_plain(layout, bias, q.float(), k.float(), v.float())
+        assert float((out.float() - ref).abs().max()) < 2e-2
+        unpacked = t_abl.ablate_attention("unpacked", bias, q, k, v, bq=bq)
+        assert float((out.float() - unpacked.float()).abs().max()) < 0.05
+
+
+@pytest.mark.cuda
+def test_ablate_attention_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    bias, q, k, v = _ablate_case(dev, 4, 128, False)
+    before = t_abl.ablate_attention.launches
+    with pytest.raises(ValueError, match="pairs"):  # an odd BH on a pair layout
+        t_abl.ablate_attention("packed_blockdiag", bias, q[:3].contiguous(), k[:3].contiguous(), v[:3].contiguous())
+    with pytest.raises(ValueError, match="multiple of bq"):
+        t_abl.ablate_attention("unpacked", bias[..., :96].contiguous(), *(t[:, :96].contiguous() for t in (q, k, v)))
+    with pytest.raises(ValueError, match="head dim"):
+        t_abl.ablate_attention("unpacked", bias, *(t[..., :32].contiguous() for t in (q, k, v)))
+    with pytest.raises(TypeError):
+        t_abl.ablate_attention("unpacked", bias, q.float(), k.float(), v.float())
+    with pytest.raises(ValueError, match="bq"):
+        t_abl.ablate_attention("unpacked", bias, q, k, v, bq=32)
+    with pytest.raises(ValueError, match="layout"):
+        t_abl.ablate_attention("packed", bias, q, k, v)
+    with pytest.raises(RuntimeError, match="no backward"):
+        t_abl.ablate_attention("unpacked", bias, q.clone().requires_grad_(True), k, v)
+    assert t_abl.ablate_attention.launches == before
+
+
+@pytest.mark.cuda
+def test_ablate_attention_occupancy_control_changes_nothing_but_occupancy(dev):
+    bias, q, k, v = _ablate_case(dev, 8, 256, True)
+    smem = t_abl.smem_bytes("packed_blockdiag", 64)
+    assert t_abl.smem_bytes("unpacked", 64) < smem <= t_abl.MAX_SMEM
+    assert t_abl.blocks_per_sm("unpacked", 64, smem) == t_abl.blocks_per_sm("packed_blockdiag", 64) >= 1
+    assert t_abl.blocks_per_sm("unpacked", 64) > t_abl.blocks_per_sm("unpacked", 64, smem)
+    out = t_abl.ablate_attention("unpacked", bias, q, k, v, min_smem=smem)
+    assert torch.equal(out, t_abl.ablate_attention("unpacked", bias, q, k, v))
+    with pytest.raises(ValueError, match="min_smem"):
+        t_abl.ablate_attention("unpacked", bias, q, k, v, min_smem=t_abl.MAX_SMEM + 1)
