@@ -12,16 +12,25 @@ Phases, each of which fails the run (non-zero exit) on any error:
    frames), max abs error on valid rows against a stated tolerance, median
    times over 20 runs (CUDA events) of the kernel, its plain version and one
    PyTorch library call of the same function, and the least time the card
-   could take (``bound_ms``); the serving attention also at the engine's long
-   buckets (2 rows x 16 heads at 2048 and 4096 frames);
+   could take (``bound_ms``); the serving attention on head-split views (as
+   the DiT hands them over) held bit-equal to the contiguous call, its d 32 /
+   d 128 / fp32 branches, all-heads RoPE, a ragged n and an all-masked row,
+   its device time in a CUDA graph with and without RoPE and the mask beside
+   SDPA's (cos/sin made once, as the DiT makes them once per bucket), and at the engine's long buckets (2 rows x 16 heads at 2048 and
+   4096 frames); the conv-pos pair (one launch) also at ragged rows shorter
+   than the kernel, n under the kernel width and batch 1, and in a CUDA graph
+   beside the cuDNN pair;
 3. engine: ``TTSEngine.synthesize`` at F5-TTS Base width (random weights from a
    seed) for three requests, one of which chunks into several rows of the
    1024-frame bucket; the launch counts of each kernel, set to 0 just before,
-   must equal what the solves need; the waveforms must be finite, non-zero
+   must equal what the solves need (per DiT forward 22 attention kernels,
+   22 of their RoPE pre-pass and 1 conv-pos pair); the waveforms must be finite, non-zero
    and of the planned length; a small-input parity check of the serving path
    (bf16 + kernels) against the fp32 plain path;
 4. bench geometry: batch 8, 1024-frame bucket, 128 reference frames, text_pad
-   512, Ralston NFE 20, CFG 2, bf16 — wall time and audio-seconds per second;
+   512, Ralston NFE 20, CFG 2, bf16 — wall time and audio-seconds per second,
+   and the profile's launches of each F5 kernel per solve (22 x 20 attention,
+   22 x 20 pre-pass, 20 conv-pos);
 5. training kernels (with phase 2): the forward-with-logsumexp and backward
    attention kernels at the training shape (F5-TTS Base heads, bf16, one
    38 400-frame batch packed as 37 x 1024, a ragged n = 1000 and the 30-s
@@ -31,7 +40,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    seed 0), bf16 compute over fp32 params, AdamW + EMA, five steps on
    synthetic frame-packed batches of ~38 400 frames (one of them 12 x 3072);
    launch counts per step against the design (44 forward launches with the
-   per-block recompute, 44 backward launches = 22 x (dK/dV + dQ), 2 conv-pos
+   per-block recompute, 44 backward launches = 22 x (dK/dV + dQ), 1 conv-pos
    launches), finite loss and gradient norm, params that move, step time and
    mel-frames/s, a profiler breakdown of one step; and one step's gradients
    through the kernels (bf16) against the fp32 plain path on a small
@@ -67,7 +76,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    and the rate of the ``mma.sync`` s8 instruction alone;
 10. int8 engine (after phase 4): ``TTSEngine(EngineConfig(quantization="int8"))``
    at F5-TTS Base + Vocos: one request with exact launch counts (quant_matmul
-   6 x 22, attention 22, conv-pos 2 per DiT forward), one DiT forward and one
+   6 x 22, attention 22, its RoPE pre-pass 22, conv-pos 1 per DiT forward), one DiT forward and one
    whole solve against the bf16 engine from the same noise, a strict request
    (estimate, escalations), ``synthesize_batch`` of three chunks as one
    solve, ``synthesize_streaming`` against ``synthesize``'s wave, then the
@@ -178,41 +187,59 @@ def check(cond: bool, what: str) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _head_split(g, dev, dtype, b, h, n, d):
+    """q, k, v as the DiT hands them to the kernel: (b, h, n, d) views of
+    (b, n, h*d) projections."""
+    return [torch.randn((b, n, h * d), generator=g).to(dev, dtype).view(b, n, h, d).transpose(1, 2) for _ in range(3)]
+
+
 def attention_phase(dev) -> dict:
-    from f5tts_tpu_torch.ops.kernels.flash_attention import flash_attention, flash_attention_plain
+    from f5tts_tpu_torch.ops.kernels.flash_attention import cos_sin_of, flash_attention, flash_attention_plain, rope_rows
     from f5tts_tpu_torch.ops.rope import apply_rotary_per_head, rotary_freqs
 
     b, h, n, d = 16, 16, 1024, 64  # fused CFG at batch 8: 2*8 rows, F5-TTS Base heads
     g = torch.Generator(device="cpu").manual_seed(0)
-    q, k, v = (torch.randn((b, h, n, d), generator=g).to(dev, torch.bfloat16) for _ in range(3))
+    q, k, v = _head_split(g, dev, torch.bfloat16, b, h, n, d)
     lens = torch.randint(n // 2, n + 1, (b,), generator=g).to(dev)
     lens[0] = n
     mask = torch.arange(n, device=dev)[None, :] < lens[:, None]
     freqs = torch.as_tensor(rotary_freqs(n, d), device=dev)
 
+    before = flash_attention.launches, rope_rows.launches
     out = flash_attention(q, k, v, mask, rope_freqs=freqs)
     torch.cuda.synchronize()
+    check((flash_attention.launches, rope_rows.launches) == (before[0] + 1, before[1] + 1),
+          "a head-0 RoPE call did not launch the pre-pass and the wgmma kernel once each")
     ref = flash_attention_plain(q.float(), k.float(), v.float(), mask, freqs)
     err = float(((out.float() - ref).abs() * mask[:, None, :, None]).max())
     log(f"attention: kernel vs fp32 plain, max abs err on valid rows {err:.3e} (tol {ATTN_TOL})")
     check(np.isfinite(err) and err <= ATTN_TOL, f"flash_attention error {err} > {ATTN_TOL}")
+    dense = flash_attention(*(t.contiguous() for t in (q, k, v)), mask, rope_freqs=freqs)
+    check(torch.equal(out, dense), "flash_attention on head-split views differs from the contiguous call")
+    trig = cos_sin_of(freqs)  # made once, as the DiT makes them once per bucket; the timings below take them
+    check(torch.equal(out, flash_attention(q, k, v, mask, rope_freqs=freqs, rope_cos_sin=trig)),
+          "flash_attention with the caller's cos/sin differs from the call that makes them")
+    log("attention: head-split views and contiguous q/k/v give bit-equal outputs, with or without the caller's cos/sin")
+    del ref, dense
 
-    # off-main-path variants: fp32 inputs, all-heads RoPE, a ragged n, a batch
-    # row whose keys are all masked (every key then weighs the same)
-    for dtype, rope_all, nn_, dead_row in ((torch.float32, False, 1024, False), (torch.bfloat16, True, 1000, False),
-                                           (torch.bfloat16, False, 256, True)):
-        qs, ks, vs = (t[:2, :, :nn_].to(dtype).contiguous() for t in (q, k, v))
+    # other branches and variants: fp32 (CUDA cores), bf16 d 32 (mma.sync), bf16 d 128 (wgmma), all-heads RoPE,
+    # a ragged n, a batch row whose keys are all masked (every key then weighs the same)
+    for dtype, rope_all, nn_, dd, dead_row in ((torch.float32, False, 1024, 64, False), (torch.bfloat16, True, 1000, 64, False),
+                                               (torch.bfloat16, False, 256, 64, True), (torch.bfloat16, True, 1024, 32, True),
+                                               (torch.bfloat16, False, 1000, 128, True), (torch.float32, True, 300, 32, False)):
+        qs, ks, vs = _head_split(g, dev, dtype, 2, h, nn_, dd)
         ms = mask[:2, :nn_].clone()
         if dead_row:
             ms[1] = False
-        fs = freqs[:nn_].contiguous()
+        fs = torch.as_tensor(rotary_freqs(nn_, dd), device=dev)
         o2 = flash_attention(qs, ks, vs, ms, rope_freqs=fs, rope_all_heads=rope_all)
         r2 = flash_attention_plain(qs.float(), ks.float(), vs.float(), ms, fs, rope_all)
         rows = ms | ~ms.any(-1, keepdim=True)  # valid query rows; all rows of a dead batch row
         e2 = float(((o2.float() - r2).abs() * rows[:, None, :, None]).max())
         tol = 1e-4 if dtype == torch.float32 else ATTN_TOL
-        log(f"attention {dtype} rope_all={rope_all} n={nn_} all-masked row={dead_row}: max abs err {e2:.3e} (tol {tol})")
-        check(e2 <= tol, f"flash_attention variant error {e2} > {tol}")
+        log(f"attention {dtype} d={dd} rope_all={rope_all} n={nn_} all-masked row={dead_row}: max abs err {e2:.3e} "
+            f"(tol {tol})")
+        check(np.isfinite(e2) and e2 <= tol, f"flash_attention variant error {e2} > {tol}")
 
     def library_call(q_, k_, v_, mask_, freqs_):  # SDPA on pre-roped q/k, the key mask as an additive bias
         qr, kr = apply_rotary_per_head(q_[:, :1], freqs_), apply_rotary_per_head(k_[:, :1], freqs_)
@@ -224,27 +251,32 @@ def attention_phase(dev) -> dict:
         nbytes = 4 * b_ * h * n_ * d * 2 + b_ * n_ + 2 * n_ * d * 4  # q, k, v, o + mask + cos/sin tables
         return bound_ms(4.0 * b_ * h * n_ * n_ * d, nbytes, PEAK_BF16_FLOPS)
 
-    ms_kernel = time_ms(lambda: flash_attention(q, k, v, mask, rope_freqs=freqs))
+    ms_kernel = time_ms(lambda: flash_attention(q, k, v, mask, rope_freqs=freqs, rope_cos_sin=trig))
     ms_plain = time_ms(lambda: flash_attention_plain(q, k, v, mask, freqs))
-    ms_lib = time_ms(library_call(q, k, v, mask, freqs))
+    ms_lib = time_ms(library_call(*(t.contiguous() for t in (q, k, v)), mask, freqs))  # SDPA's own layout
     bms, by = bound_of(b, n)
     log(f"attention times: kernel {ms_kernel:.4f} ms, plain {ms_plain:.4f} ms, "
         f"library (SDPA on pre-roped q/k) {ms_lib:.4f} ms, bound {bms:.4f} ms ({by})")
     # where a launch's time goes: device time per call back to back in a CUDA graph (no host gaps), with and
-    # without the fused RoPE and the key mask
+    # without the RoPE and the key mask; SDPA the same way (its q/k roped before the graph)
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
     split = {what: time_graph_ms([fn] * 20) for what, fn in (
-        ("rope_mask", lambda: flash_attention(q, k, v, mask, rope_freqs=freqs)),
-        ("mask", lambda: flash_attention(q, k, v, mask)), ("neither", lambda: flash_attention(q, k, v)))}
+        ("rope_mask", lambda: flash_attention(q, k, v, mask, rope_freqs=freqs, rope_cos_sin=trig)),
+        ("mask", lambda: flash_attention(q, k, v, mask)), ("neither", lambda: flash_attention(q, k, v)),
+        ("sdpa_mask", library_call(qc, kc, vc, mask, freqs)),
+        ("sdpa_neither", lambda: F.scaled_dot_product_attention(qc, kc, vc)))}
     log(f"attention device time per call in a CUDA graph of 20 calls: with head-0 RoPE and the key mask "
         f"{split['rope_mask']:.4f} ms, the mask only {split['mask']:.4f} ms, neither {split['neither']:.4f} ms "
-        f"(one eager call through the wrapper: {ms_kernel:.4f} ms)")
+        f"(one eager call through the wrapper: {ms_kernel:.4f} ms); SDPA with the mask as a bias "
+        f"{split['sdpa_mask']:.4f} ms, without {split['sdpa_neither']:.4f} ms")
+    del qc, kc, vc
 
     # the engine's long buckets (EngineConfig.duration_buckets up to 4096 frames): 2 rows x 16 heads, bf16,
     # head-0 RoPE, a ragged key mask, against the fp32 plain version
     long = {}
     for nl in (2048, 4096):
         gl = torch.Generator(device="cpu").manual_seed(nl)
-        ql, kl, vl = (torch.randn((2, h, nl, d), generator=gl).to(dev, torch.bfloat16) for _ in range(3))
+        ql, kl, vl = _head_split(gl, dev, torch.bfloat16, 2, h, nl, d)
         lens_l = torch.tensor([nl, int(torch.randint(nl // 2, nl, (1,), generator=gl))], device=dev)
         ml = torch.arange(nl, device=dev)[None, :] < lens_l[:, None]
         fl = torch.as_tensor(rotary_freqs(nl, d), device=dev)
@@ -254,8 +286,9 @@ def attention_phase(dev) -> dict:
         el = float(((ol.float() - rl).abs() * ml[:, None, :, None]).max())
         del rl, ol
         torch.cuda.empty_cache()
-        ms_k, ms_l = time_ms(lambda: flash_attention(ql, kl, vl, ml, rope_freqs=fl)), time_ms(
-            library_call(ql, kl, vl, ml, fl))
+        trig_l = cos_sin_of(fl)
+        ms_k, ms_l = time_ms(lambda: flash_attention(ql, kl, vl, ml, rope_freqs=fl, rope_cos_sin=trig_l)), time_ms(
+            library_call(*(t.contiguous() for t in (ql, kl, vl)), ml, fl))
         bl, byl = bound_of(2, nl)
         log(f"attention n={nl} (2 x 16 heads, bf16, head-0 RoPE, key lengths {lens_l.tolist()}): max abs err on valid "
             f"rows {el:.3e} (tol {ATTN_TOL}); kernel {ms_k:.4f} ms, library (SDPA on pre-roped q/k) {ms_l:.4f} ms, "
@@ -286,8 +319,8 @@ def conv_phase(dev) -> dict:
     out = conv_pos(x, w1, b1, w2, b2, lens)
     torch.cuda.synchronize()
     ref = conv_pos_plain(x.float(), w1.float(), b1.float(), w2.float(), b2.float(), lens)
-    err = float(((out.float() - ref).abs() * mask[..., None]).max())
-    log(f"conv_pos: kernel vs fp32 plain, max abs err on valid rows {err:.3e} (tol {CONV_TOL})")
+    err = float((out.float() - ref).abs().max())
+    log(f"conv_pos: kernel vs fp32 plain, max abs err over every row (those past lens too) {err:.3e} (tol {CONV_TOL})")
     check(np.isfinite(err) and err <= CONV_TOL, f"conv_pos error {err} > {CONV_TOL}")
 
     # off-main-path variants: fp32 (CUDA-core path), and a group width other than 64
@@ -306,6 +339,20 @@ def conv_phase(dev) -> dict:
     log(f"conv_pos bf16 group width 8: max abs err {e3:.3e} (tol {CONV_TOL})")
     check(e3 <= CONV_TOL, f"conv_pos narrow-group error {e3}")
 
+    # the fused pair at the edges: rows shorter than the kernel, n no multiple of the 256-frame tile, n under the
+    # kernel width, batch 1
+    for nn_, lens_ in ((20, [20, 7]), (700, [700, 13]), (300, [1])):
+        ls = torch.tensor(lens_, dtype=torch.int32, device=dev)
+        ms_ = (torch.arange(nn_, device=dev)[None] < ls[:, None])[..., None]
+        xe = x[:len(lens_), :nn_] * ms_
+        before = conv_pos.launches
+        oe = conv_pos(xe, w1, b1, w2, b2, ls)
+        check(conv_pos.launches == before + 1, "the bf16 conv-pos pair did not run as one launch")
+        re_ = conv_pos_plain(xe.float(), w1.float(), b1.float(), w2.float(), b2.float(), ls)
+        ee = float((oe.float() - re_).abs().max())
+        log(f"conv_pos bf16 b={len(lens_)} n={nn_} lens={lens_}: max abs err over every row {ee:.3e} (tol {CONV_TOL})")
+        check(np.isfinite(ee) and ee <= CONV_TOL, f"conv_pos edge case error {ee}")
+
     ms_kernel = time_ms(lambda: conv_pos(x, w1, b1, w2, b2, lens))
     ms_plain = time_ms(lambda: conv_pos_plain(x, w1, b1, w2, b2, lens))
     xt = x.transpose(1, 2).contiguous()
@@ -319,11 +366,14 @@ def conv_phase(dev) -> dict:
     flops = 2 * 2.0 * b * n * c * kw * cg
     nbytes = 2 * b * n * c * 2 + 2 * (kw * cg * c * 2 + c * 2) + b * 4  # x, y; weights, biases; lens
     bms, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
-    log(f"conv_pos times: kernel pair {ms_kernel:.4f} ms, plain {ms_plain:.4f} ms, "
-        f"library (2x F.conv1d groups=16 + Mish) {ms_lib:.4f} ms, bound {bms:.4f} ms ({by})")
+    graph = {"kernel": time_graph_ms([lambda: conv_pos(x, w1, b1, w2, b2, lens)] * 10),
+             "library": time_graph_ms([library] * 10)}
+    log(f"conv_pos times: kernel (the fused pair, one launch) {ms_kernel:.4f} ms, plain {ms_plain:.4f} ms, "
+        f"library (2x F.conv1d groups=16 + Mish) {ms_lib:.4f} ms, bound {bms:.4f} ms ({by}); device time per call "
+        f"in a CUDA graph of 10 calls: kernel {graph['kernel']:.4f} ms, library {graph['library']:.4f} ms")
     return {"name": "conv_pos", "route": "cuda", "source": "f5tts_tpu_torch/csrc/conv_pos.cu",
             "replaces": "f5tts_tpu/ops/pallas/conv_pos.py:141", "max_abs_err": err, "ms": ms_kernel,
-            "plain_ms": ms_plain, "bound_ms": bms, "bound_by": by, "library_ms": ms_lib}
+            "plain_ms": ms_plain, "bound_ms": bms, "bound_by": by, "library_ms": ms_lib, "graph_ms": graph}
 
 
 
@@ -661,7 +711,7 @@ def planned_length(engine, plan) -> int:
 def engine_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, launches: dict) -> None:
     from f5tts_tpu_torch.engine.engine import EngineConfig, TTSEngine
     from f5tts_tpu_torch.ops.kernels.conv_pos import conv_pos
-    from f5tts_tpu_torch.ops.kernels.flash_attention import flash_attention
+    from f5tts_tpu_torch.ops.kernels.flash_attention import flash_attention, rope_rows
     from f5tts_tpu_torch.sampling.euler import SamplerConfig, sample_cfm
 
     engine = TTSEngine(dit_np, dit_cfg, voc_np, tok, EngineConfig(vocoder=voc_cfg), device=dev)
@@ -675,8 +725,9 @@ def engine_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, launches: dict) -> 
         ("ನಮಸ್ಕಾರ, ಇದು ಮೂರನೇ ವಿನಂತಿ.", synthetic_ref(4.0, 180.0, 2), "Reference speech for the third voice."),
     ]
     n_blocks = dit_cfg.depth
-    flash_attention.launches = 0
-    conv_pos.launches = 0
+    wrappers = {"flash_attention": flash_attention, "rope_rows": rope_rows, "conv_pos": conv_pos}
+    for w in wrappers.values():
+        w.launches = 0
     t0 = time.perf_counter()
     for i, (text, ref, ref_text) in enumerate(requests):
         plan = engine.prepare_request(text, ref, 24000, ref_text, seed=i)
@@ -690,15 +741,16 @@ def engine_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, launches: dict) -> 
         check(bool(np.isfinite(wave).all()) and float(np.abs(wave).max()) > 0, f"request {i}: wave not finite/non-zero")
         check(bool(np.isfinite(mel).all()), f"request {i}: mel not finite")
     wall = time.perf_counter() - t0
-    launches["flash_attention"]["serve"] = flash_attention.launches
-    launches["conv_pos"]["serve"] = conv_pos.launches
+    got = {name: w.launches for name, w in wrappers.items()}
+    for name, count in got.items():
+        launches[name]["serve"] = count
     n_forwards = sum(forwards for forwards, _ in solves)  # each one fused 2b-row forward
-    want_flash, want_conv = n_blocks * n_forwards, 2 * n_forwards
+    # per forward: each block's attention kernel and its RoPE pre-pass; the conv-pos pair is one launch
+    want = {"flash_attention": n_blocks * n_forwards, "rope_rows": n_blocks * n_forwards, "conv_pos": n_forwards}
     log(f"engine: {len(requests)} requests, {len(solves)} solves (forwards, rows) {solves} in {wall:.3f} s; launches "
-        f"flash_attention {flash_attention.launches} (want {want_flash}), conv_pos {conv_pos.launches} (want {want_conv})")
+        f"{got} (want {want})")
     check(any(b > 1 for _, b in solves), "no solve batched several rows")
-    check(flash_attention.launches == want_flash and want_flash > 0, "flash_attention launch count")
-    check(conv_pos.launches == want_conv and want_conv > 0, "conv_pos launch count")
+    check(got == want and n_forwards > 0, f"engine launch counts {got}, want {want}")
 
     # serving path (bf16 + kernels) vs the fp32 plain path on a small input
     import dataclasses
@@ -753,11 +805,14 @@ def int8_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card: str, launches: 
     from f5tts_tpu_torch.engine.engine import EngineConfig, TTSEngine
     from f5tts_tpu_torch.models.dit import dit_forward
     from f5tts_tpu_torch.ops.kernels.conv_pos import conv_pos
-    from f5tts_tpu_torch.ops.kernels.flash_attention import flash_attention
+    from f5tts_tpu_torch.ops.kernels.flash_attention import flash_attention, rope_rows
     from f5tts_tpu_torch.ops.kernels.quant_matmul import quant_matmul
 
-    wrappers = {"quant_matmul": quant_matmul, "flash_attention": flash_attention, "conv_pos": conv_pos}
-    per_forward = {"quant_matmul": QUANTIZED_LINEARS * dit_cfg.depth, "flash_attention": dit_cfg.depth, "conv_pos": 2}
+    wrappers = {"quant_matmul": quant_matmul, "flash_attention": flash_attention, "rope_rows": rope_rows,
+                "conv_pos": conv_pos}
+    # per DiT forward: every block's six linears, its attention kernel and that kernel's RoPE pre-pass; one conv pair
+    per_forward = {"quant_matmul": QUANTIZED_LINEARS * dit_cfg.depth, "flash_attention": dit_cfg.depth,
+                   "rope_rows": dit_cfg.depth, "conv_pos": 1}
     engine = TTSEngine(dit_np, dit_cfg, voc_np, tok, EngineConfig(vocoder=voc_cfg, quantization="int8"), device=dev)
     blocks = engine.dit_params["blocks"]
     for group, name in [("attn", n) for n in ("to_q", "to_k", "to_v", "to_out")] + [("ff", "in"), ("ff", "out")]:
@@ -768,7 +823,7 @@ def int8_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card: str, launches: 
     solves = _count_solves(engine)
 
     def counted(what: str, path: str, fn):
-        """Run ``fn`` with the three counts set to 0 before it; they must equal
+        """Run ``fn`` with the four counts set to 0 before it; they must equal
         what the solves it ran need, exactly."""
         for w in wrappers.values():
             w.launches = 0
@@ -885,7 +940,9 @@ def int8_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card: str, launches: 
     for name, w in wrappers.items():
         launches[name]["bench_int8"] = w.launches
     forwards = 5 * 20  # a warm call, the profiled call and three timed ones, 20 forwards each
-    check(quant_matmul.launches == per_forward["quant_matmul"] * forwards, "int8 bench quant_matmul launch count")
+    check(all(w.launches == per_forward[name] * forwards for name, w in wrappers.items()),
+          f"int8 bench launch counts {({name: w.launches for name, w in wrappers.items()})}, want "
+          f"{({name: per_forward[name] * forwards for name in wrappers})}")
     gemm_bf16, gemm_int8 = bf16_bench["launch_counts"].get("gemm", 0), int8_bench["launch_counts"].get("gemm", 0)
     moved = per_forward["quant_matmul"] * 20
     log(f"int8 against bf16 at the bench geometry on {card}: {int8_bench['audio_s_per_s']:.2f} against "
@@ -896,8 +953,8 @@ def int8_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card: str, launches: 
           "the six linears of every block did not all move from library GEMMs to quant_matmul")
 
 
-BENCH_FAMILIES = (("flash_attention", ("flash_fwd",)), ("conv_pos", ("conv_wmma", "conv_generic")),
-                  ("quant_matmul", ("quant_matmul_kernel",)))
+BENCH_FAMILIES = (("flash_attention", ("flash_wgmma", "flash_fwd")), ("rope_rows", ("rope_rows",)),
+                  ("conv_pos", ("conv_pair", "conv_generic")), ("quant_matmul", ("quant_matmul_kernel",)))
 
 
 def bench_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card: str, quantization: str = "none") -> dict:
@@ -926,6 +983,10 @@ def bench_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card: str, quantizat
     run()
     what = "bf16" if quantization == "none" else quantization
     _, counts = profile_by_family(f"one bench solve ({what})", run, BENCH_FAMILIES)
+    forwards = steps * 2  # Ralston: two DiT forwards per step
+    want = {"flash_attention": dit_cfg.depth * forwards, "rope_rows": dit_cfg.depth * forwards, "conv_pos": forwards}
+    got = {fam: counts.get(fam, 0) for fam in want}
+    check(got == want, f"bench solve ({what}): kernel launches in the profile {got}, want {want}")
     iters = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -1095,7 +1156,7 @@ TRAIN_SHAPES = ((37, 1024), (12, 3072), (37, 1024), (37, 1024), (37, 1024))  # (
 def train_phase(dev, model, shapes, tok, card: str, launches: dict) -> None:
     from f5tts_tpu_torch.models.cfm import CFMConfig
     from f5tts_tpu_torch.ops.kernels.conv_pos import conv_pos
-    from f5tts_tpu_torch.ops.kernels.flash_attention import flash_attention
+    from f5tts_tpu_torch.ops.kernels.flash_attention import flash_attention, rope_rows
     from f5tts_tpu_torch.ops.kernels.flash_attention_train import flash_attention_train_fwd, flash_attention_train_bwd
     from f5tts_tpu_torch.train.data import synthetic_packed_batch
     from f5tts_tpu_torch.train.trainer import TrainConfig, Trainer
@@ -1111,10 +1172,10 @@ def train_phase(dev, model, shapes, tok, card: str, launches: dict) -> None:
     watch = {name: t.detach().clone() for name, t in tree_leaves(state["params"])}
     batches = [synthetic_packed_batch(model, n, b, seed=i) for i, (b, n) in enumerate(shapes)]
     per_step = {"flash_attention_train_fwd": 2 * model.depth, "flash_attention_train_bwd": 2 * model.depth,
-                "conv_pos": 2, "flash_attention": 0}
+                "conv_pos": 1, "flash_attention": 0, "rope_rows": 0}
     wrappers = {"flash_attention_train_fwd": flash_attention_train_fwd,
                 "flash_attention_train_bwd": flash_attention_train_bwd, "conv_pos": conv_pos,
-                "flash_attention": flash_attention}
+                "flash_attention": flash_attention, "rope_rows": rope_rows}
     for w in wrappers.values():
         w.launches = 0
     times = []
@@ -1148,7 +1209,7 @@ def train_phase(dev, model, shapes, tok, card: str, launches: dict) -> None:
         f"{[(shape, round(t, 4)) for shape, t in zip(shapes, times) if shape != first]}")
     profile_by_family("one train step", lambda: (trainer.step(state, batches[2]), torch.cuda.synchronize()), (
         ("flash_attention_train_fwd", ("fwd_lse",)), ("flash_attention_train_bwd", ("bwd_dkdv", "bwd_dq")),
-        ("conv_pos", ("conv_wmma", "conv_generic"))), top=8)
+        ("conv_pos", ("conv_pair", "conv_generic"))), top=8)
     del state, trainer
     torch.cuda.empty_cache()
 
@@ -1211,12 +1272,12 @@ def parler_phase(dev, card: str, launches: dict) -> None:
     from f5tts_tpu_torch.models.convert import init_dac_numpy, init_parler_decoder_numpy, init_t5_numpy
     from f5tts_tpu_torch.ops.kernels.conv_pos import conv_pos
     from f5tts_tpu_torch.ops.kernels.decode_attention import decode_attention
-    from f5tts_tpu_torch.ops.kernels.flash_attention import flash_attention
+    from f5tts_tpu_torch.ops.kernels.flash_attention import flash_attention, rope_rows
     from f5tts_tpu_torch.ops.kernels.flash_attention_train import flash_attention_train_bwd, flash_attention_train_fwd
     from f5tts_tpu_torch.train.tree import tree_leaves
 
     parler_logit_parity(dev)
-    others = {"flash_attention": flash_attention, "conv_pos": conv_pos,
+    others = {"flash_attention": flash_attention, "rope_rows": rope_rows, "conv_pos": conv_pos,
               "flash_attention_train_fwd": flash_attention_train_fwd,
               "flash_attention_train_bwd": flash_attention_train_bwd}
     total_launches = [0]
@@ -1378,6 +1439,7 @@ def main():
     kernels = [attention_phase(dev), conv_phase(dev), *train_kernel_phase(dev), decode_attention_phase(dev),
                quant_matmul_phase(dev), ablate_attention_phase(dev)]
     launches = {k["name"]: {} for k in kernels}  # kernel -> path -> launches, each path's counts set to 0 before it
+    launches["rope_rows"] = {}  # the serving attention's RoPE pre-pass, counted apart from its main kernel
     launches["ablate_attention"]["ablation"] = kernels[-1].pop("ablation_launches")
     if not args.kernels_only:
         from f5tts_tpu_torch.models.convert import init_dit_numpy, init_vocos_numpy
@@ -1400,12 +1462,15 @@ def main():
     for k in kernels:
         k["launches_by_path"] = launches[k["name"]]
         k["launches"] = sum(launches[k["name"]].values())
+    kernels[0]["rope_rows_launches_by_path"] = launches["rope_rows"]
+    kernels[0]["rope_rows_launches"] = sum(launches["rope_rows"].values())
     log(card_line())
     log(json.dumps({"kernels": [{key: k[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
         "bound_by", "library_ms", "launches_by_path",
         *(key for key in ("int_mm_ms", "bf16_matmul_ms", "mma_sync_s8_top_s", "graph_ms", "other_shapes",
-                          "layouts_ms", "ablation_rows") if key in k))}
+                          "layouts_ms", "ablation_rows", "rope_rows_launches",
+                          "rope_rows_launches_by_path") if key in k))}
         for k in kernels]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -49,6 +49,20 @@ def build_argparser() -> argparse.ArgumentParser:
 _LATIN_VOCAB = {" ": 0, **{chr(i): i - 31 for i in range(33, 127)}}
 
 
+def text_vocab(args):
+    """The tokenizer and the DiT's ``text_num_embeds``, as the JAX CLI picks
+    them: ``--vocab-file``'s size when given; otherwise the Latin tokenizer,
+    with 256 embeddings for ``--demo-tiny`` and the tokenizer's size (95) at
+    the real geometry (``--random-init``)."""
+    from f5tts_tpu_torch.text.tokenizer import Tokenizer
+
+    if args.vocab_file:
+        tok = Tokenizer.from_file(args.vocab_file)
+        return tok, tok.vocab_size
+    tok = Tokenizer(_LATIN_VOCAB)
+    return tok, 256 if args.demo_tiny else tok.vocab_size
+
+
 def build_engine(args):
     from f5tts_tpu_torch.engine.engine import EngineConfig, TTSEngine
     from f5tts_tpu_torch.models.convert import init_dit_numpy, init_vocos_numpy, load_params_npz
@@ -56,10 +70,8 @@ def build_engine(args):
     from f5tts_tpu_torch.models.vocos import VocosConfig
     from f5tts_tpu_torch.ops.mel import MelConfig
     from f5tts_tpu_torch.sampling.euler import DEFAULT_NFE, SamplerConfig, default_time_grid, nfe_to_steps
-    from f5tts_tpu_torch.text.tokenizer import Tokenizer
 
-    tok = Tokenizer.from_file(args.vocab_file) if args.vocab_file else Tokenizer(_LATIN_VOCAB)
-    n_embeds = tok.vocab_size if args.vocab_file else 256
+    tok, n_embeds = text_vocab(args)
     if args.demo_tiny:
         mel_cfg = MelConfig(n_mels=20)
         dit_cfg = DiTConfig(dim=64, depth=2, heads=2, dim_head=32, ff_mult=2, mel_dim=20,

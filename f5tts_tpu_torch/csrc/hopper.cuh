@@ -1,0 +1,210 @@
+// Hopper (sm_90a) building blocks of the port's redesigned kernels: wgmma
+// with A from registers and B from a shared-memory descriptor, its
+// fence / commit / wait, mbarriers, TMA tile loads, named barriers,
+// setmaxnreg, and the host-side TMA descriptor (cuTensorMapEncodeTiled,
+// reached through cudaGetDriverEntryPoint, so no -lcuda is needed).
+//
+// Shared-memory tiles are rows of 64 bf16 (128 bytes) in TMA's 128-byte
+// swizzle: the 16-byte chunk c of row r sits at chunk c ^ (r % 8), each tile
+// 1024-byte aligned. As a wgmma B operand such a tile is
+//   K-major  (B[k][n] = tile[n][k], e.g. K rows for S = Q K^T): SBO = 1024 bytes
+//            between 8-row groups; a k-step of 16 moves the start by 32 bytes;
+//   MN-major (B[k][n] = tile[k][n], e.g. V rows for O = P V, conv weights
+//            [in][out]): transpose bit set, SBO = 1024 bytes between 8-row
+//            groups of k, LBO = the distance between 64-column panels; a
+//            k-step of 16 moves the start by 16 rows = 2048 bytes.
+// Register fragments of wgmma m64nNk16: warp w of the warpgroup owns rows
+// 16w..16w+15 and, within them, the mma.sync m16n8k16 layout (attention.cuh):
+// A as a[0..3], D as d[4j..4j+3] for columns 8j..8j+7.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace f5 {
+namespace hopper {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// --- wgmma -----------------------------------------------------------------
+
+// Descriptor of a 128-byte-swizzled bf16 tile at `p` (1024-byte aligned
+// panels); offsets in bytes.
+__device__ __forceinline__ uint64_t desc_b128(const void* p, uint32_t lbo_bytes, uint32_t sbo_bytes) {
+    uint64_t d = 0;
+    d |= (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4);
+    d |= (uint64_t)((lbo_bytes >> 4) & 0x3FFF) << 16;
+    d |= (uint64_t)((sbo_bytes >> 4) & 0x3FFF) << 32;
+    d |= (uint64_t)1 << 62;  // 128-byte swizzle
+    return d;
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() { asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory"); }
+
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across a wgmma issue or wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+template <int N, int M>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][M]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+        for (int j = 0; j < M; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// d (64 x 64 fp32, this thread's 32) (+)= a (64 x 16 bf16, registers) . B (16 x 64 bf16, descriptor)
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float* d, const uint32_t* a, uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+}
+
+// d (64 x 128 fp32, this thread's 64) (+)= a (64 x 16 bf16, registers) . B (16 x 128 bf16, descriptor)
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float* d, const uint32_t* a, uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+}
+
+
+// --- registers, barriers ----------------------------------------------------
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() { asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R)); }
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() { asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R)); }
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+    asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() { asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory"); }
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+// Wait until the barrier's phase with parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+    asm volatile(
+        "{\n.reg .pred done;\n"
+        "WAIT_%=:\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+        "@!done bra WAIT_%=;\n}\n" ::"r"(smem_u32(bar)),
+        "r"(parity)
+        : "memory");
+}
+
+// --- TMA ---------------------------------------------------------------------
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+        ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+        : "memory");
+}
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2,
+                                            int c3) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+        ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+        "r"(c3)
+        : "memory");
+}
+
+// --- shared-memory fragments -------------------------------------------------
+
+// Byte offset of element (r, c) in a 128-byte-swizzled tile of 64-column rows.
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+    return (uint32_t)(r * 128 + ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2);
+}
+
+// A fragment (16 x 16, the m16n8k16 / wgmma register layout) of rows
+// row0.., columns col0.. of a swizzled tile: lane l addresses row l % 16.
+__device__ __forceinline__ void ldmatrix_a(uint32_t* a, const unsigned char* tile, int row0, int col0, int lane) {
+    const int r = row0 + (lane & 15), c = col0 + (lane >> 4) * 8;
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+                 : "r"(smem_u32(tile + swz(r, c))));
+}
+
+}  // namespace hopper
+}  // namespace f5
+
+// --- host: TMA descriptors ----------------------------------------------------
+
+namespace f5 {
+namespace hopper {
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled_fn() {
+    static EncodeTiledFn fn = nullptr;
+    if (fn == nullptr) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult q;
+        if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) == cudaSuccess &&
+            q == cudaDriverEntryPointSuccess)
+            fn = reinterpret_cast<EncodeTiledFn>(p);
+    }
+    return fn;
+}
+
+// A bf16 tensor map of `rank` dims (innermost first; strides in bytes of dims
+// 1.., each a multiple of 16) with a box of 64 elements x box_rows x 1 ...,
+// 128-byte swizzle, zero fill out of bounds. Returns a cudaError_t.
+inline int make_map_bf16(CUtensorMap* map, const void* base, int rank, const uint64_t* dims, const uint64_t* strides,
+                         uint32_t box_rows) {
+    EncodeTiledFn fn = encode_tiled_fn();
+    if (fn == nullptr) return (int)cudaErrorNotSupported;
+    cuuint64_t gdim[5], gstride[4];
+    cuuint32_t box[5], estride[5];
+    for (int i = 0; i < rank; ++i) {
+        gdim[i] = dims[i];
+        box[i] = i == 0 ? 64 : (i == 1 ? box_rows : 1);
+        estride[i] = 1;
+        if (i > 0) gstride[i - 1] = strides[i - 1];
+    }
+    CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank, const_cast<void*>(base), gdim, gstride, box,
+                    estride, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                    CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+}  // namespace hopper
+}  // namespace f5

@@ -17,6 +17,7 @@ with a leading depth axis (``models/convert.py:dit_params_from_numpy``).
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -24,7 +25,17 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from f5tts_tpu_torch.models import modules as m
+from f5tts_tpu_torch.ops.kernels.flash_attention import cos_sin_of
 from f5tts_tpu_torch.ops.rope import precompute_freqs_cis, rotary_freqs
+
+
+@functools.lru_cache(maxsize=16)
+def _rope_table(n: int, dim_head: int, device: str) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """The ``(n, dim_head)`` RoPE angle table on ``device`` and its fp32
+    ``cos``/``sin`` (the serving attention kernel's inputs), made together
+    once per bucket and handed to every layer of every forward. Read only."""
+    freqs = torch.as_tensor(rotary_freqs(n, dim_head), device=device)
+    return freqs, cos_sin_of(freqs)
 
 
 @dataclass(frozen=True)
@@ -144,7 +155,7 @@ def dit_forward(
         text_emb = dit_embed(params, cfg, text, n, drop_text, valid_mask=mask)
     h = input_embed(params, x.to(compute_dtype), cond.to(compute_dtype), text_emb.to(compute_dtype),
                     drop_audio_cond, mask, conv_pos_impl=cfg.conv_pos_impl)
-    freqs = torch.as_tensor(rotary_freqs(n, cfg.dim_head), device=x.device)
+    freqs, cos_sin = _rope_table(n, cfg.dim_head, str(x.device))
     residual = h
     depth = stack_depth(params["blocks"])
     if training:
@@ -160,7 +171,7 @@ def dit_forward(
     else:
         for i in range(depth):
             h = m.dit_block(block(params["blocks"], i), h, t, cfg.heads, freqs, mask,
-                            impl=cfg.attn_impl, rope_all_heads=cfg.rope_all_heads)
+                            impl=cfg.attn_impl, rope_all_heads=cfg.rope_all_heads, rope_cos_sin=cos_sin)
     if cfg.long_skip_connection:
         h = m.linear(params["long_skip"], torch.cat([h, residual], dim=-1))
     h = m.adaln_zero_final(params["norm_out"], h, t)

@@ -239,11 +239,13 @@ def _rope_heads(t, rope_freqs, rope_all_heads: bool):
 
 
 def attention(p, x, heads: int, rope_freqs=None, mask=None, impl: str = "flash", rope_all_heads: bool = False,
-              training: bool = False, dropout_seed: int | None = None, dropout_rate: float = 0.0):
+              training: bool = False, dropout_seed: int | None = None, dropout_rate: float = 0.0,
+              rope_cos_sin=None):
     """Self-attention with the reference's flat-RoPE quirk. ``impl='flash'``
-    takes the kernel wrapper with the RoPE fused in (serving) or, with
-    ``training``, RoPE in PyTorch and the differentiable kernels; ``'plain'``
-    applies RoPE on the flat projection (head 0) or per head, then ``sdpa``."""
+    takes the kernel wrapper with the RoPE fused in (serving; ``rope_cos_sin``
+    is handed to it) or, with ``training``, RoPE in PyTorch and the
+    differentiable kernels; ``'plain'`` applies RoPE on the flat projection
+    (head 0) or per head, then ``sdpa``."""
     b, n, _ = x.shape
     q = linear(p["to_q"], x)
     k = linear(p["to_k"], x)
@@ -252,16 +254,19 @@ def attention(p, x, heads: int, rope_freqs=None, mask=None, impl: str = "flash",
         q = apply_rotary(q, rope_freqs)
         k = apply_rotary(k, rope_freqs)
 
-    def split_heads(t):
-        return t.reshape(b, n, heads, -1).transpose(1, 2).contiguous()
+    def split_heads(t):  # a (b, h, n, d) view; the serving kernel reads it through its strides
+        return t.reshape(b, n, heads, -1).transpose(1, 2)
 
     q, k, v = split_heads(q), split_heads(k), split_heads(v)
+    if impl != "flash" or training:  # the plain and training paths take contiguous heads
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if impl == "flash" and training:
         if rope_freqs is not None:
             q, k = _rope_heads(q, rope_freqs, rope_all_heads), _rope_heads(k, rope_freqs, rope_all_heads)
         o = flash_attention_train(q, k, v, mask)
     elif impl == "flash":
-        o = flash_attention(q, k, v, mask, rope_freqs=rope_freqs, rope_all_heads=rope_all_heads)
+        o = flash_attention(q, k, v, mask, rope_freqs=rope_freqs, rope_all_heads=rope_all_heads,
+                            rope_cos_sin=rope_cos_sin)
     elif impl == "plain":
         if rope_freqs is not None and rope_all_heads:
             q = apply_rotary_per_head(q, rope_freqs)
@@ -269,7 +274,7 @@ def attention(p, x, heads: int, rope_freqs=None, mask=None, impl: str = "flash",
         o = sdpa(q, k, v, mask)
     else:
         raise ValueError(f"unknown attention impl {impl!r}")
-    o = linear(p["to_out"], o.transpose(1, 2).reshape(b, n, -1))
+    o = linear(p["to_out"], o.transpose(1, 2).reshape(b, n, -1))  # a view of the serving kernel's (b, n, h, d) output
     if dropout_seed is not None and dropout_rate > 0.0:
         o = dropout(o, dropout_seed, dropout_rate)  # to_out = [Linear, Dropout]
     if mask is not None:
@@ -278,11 +283,13 @@ def attention(p, x, heads: int, rope_freqs=None, mask=None, impl: str = "flash",
 
 
 def dit_block(p, x, t_emb, heads: int, rope_freqs=None, mask=None, impl: str = "flash", rope_all_heads: bool = False,
-              training: bool = False, dropout_seeds: tuple[int, int] | None = None, dropout_rate: float = 0.0):
-    """One DiT block; ``dropout_seeds`` = (attention seed, feed-forward seed)."""
+              training: bool = False, dropout_seeds: tuple[int, int] | None = None, dropout_rate: float = 0.0,
+              rope_cos_sin=None):
+    """One DiT block; ``dropout_seeds`` = (attention seed, feed-forward seed);
+    ``rope_cos_sin`` as ``attention`` takes it."""
     attn_seed, ff_seed = dropout_seeds if dropout_seeds is not None else (None, None)
     norm, gate_msa, shift_mlp, scale_mlp, gate_mlp = adaln_zero(p["attn_norm"], x, t_emb)
     x = x + gate_msa[:, None] * attention(p["attn"], norm, heads, rope_freqs, mask, impl, rope_all_heads,
-                                          training, attn_seed, dropout_rate)
+                                          training, attn_seed, dropout_rate, rope_cos_sin)
     norm = layer_norm(x) * (1 + scale_mlp[:, None]) + shift_mlp[:, None]
     return x + gate_mlp[:, None] * feed_forward(p["ff"], norm, ff_seed, dropout_rate)

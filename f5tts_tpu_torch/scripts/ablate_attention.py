@@ -86,6 +86,11 @@ def _time_host(fn, x0, chain: int, iters: int):
     return statistics.median(times) / chain, x
 
 
+def _heads_last(t):
+    """``t (BH, n, d)`` as a view of a ``(n, BH, d)`` buffer (a copy unless it is one already)."""
+    return t if t.stride(0) == t.shape[2] else t.transpose(0, 1).contiguous().transpose(0, 1)
+
+
 def run(bh: int, n: int, bq: int, chain: int, iters: int, device=None, seed: int = 0) -> list[dict]:
     """One row per layout (in ``LAYOUTS`` order), then ``unpacked`` launched
     with ``packed_blockdiag``'s shared memory (so that as few warps share an
@@ -106,7 +111,10 @@ def run(bh: int, n: int, bq: int, chain: int, iters: int, device=None, seed: int
     kernels[LOW_OCCUPANCY] = ("unpacked", smem_bytes("packed_blockdiag", bq) if dev.type == "cuda" else 0)
     calls = {name: (lambda x, lay=lay, smem=smem: ablate_attention(lay, bias, x, k, v, bq, min_smem=smem))
              for name, (lay, smem) in kernels.items()}
-    calls[SHIPPING] = lambda x: flash_attention(x[None], k4, v4)[0]
+    # the shipping kernel reads heads-last (BH, n, d) views (its serving layout, the head split of a projection)
+    # and returns one: only the chain's first call converts q
+    ks4, vs4 = _heads_last(k)[None], _heads_last(v)[None]
+    calls[SHIPPING] = lambda x: flash_attention(_heads_last(x)[None], ks4, vs4)[0]
     calls[SDPA] = lambda x: F.scaled_dot_product_attention(x[None], k4, v4, attn_mask=mask)[0]
     timer = _time_card if dev.type == "cuda" else _time_host
     rows, ref = [], None

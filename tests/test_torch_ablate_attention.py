@@ -106,3 +106,4 @@ def test_run_without_a_device_raises_when_no_gpu_is_visible(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         ts.run(4, 128, 64, 2, 1)
+

@@ -25,34 +25,87 @@ def dev():
     return torch.device("cuda")
 
 
+# bf16 d 64 / 128: the wgmma kernel (with the RoPE pre-pass); d 32 and fp32: the mma.sync / CUDA-core kernels
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
 @pytest.mark.parametrize("rope_all", [False, True])
-def test_flash_attention_kernel_matches_plain(dev, dtype, tol, rope_all):
-    g = torch.Generator().manual_seed(0)
-    q, k, v = (torch.randn((2, 4, 200, 64), generator=g).to(dev, dtype) for _ in range(3))
-    mask = (torch.arange(200)[None] < torch.tensor([[200], [150]])).to(dev)
-    freqs = torch.as_tensor(rotary_freqs(200, 64), device=dev)
-    before = t_flash.flash_attention.launches
+@pytest.mark.parametrize("b,h,n,d,dead_row", [(2, 4, 200, 64, False), (2, 2, 1000, 64, True), (1, 2, 4096, 64, False),
+                                              (2, 2, 200, 128, True), (2, 2, 130, 32, False)])
+def test_flash_attention_kernel_matches_plain(dev, dtype, tol, rope_all, b, h, n, d, dead_row):
+    g = torch.Generator().manual_seed(n + d)
+    q, k, v = (torch.randn((b, h, n, d), generator=g).to(dev, dtype) for _ in range(3))
+    mask = (torch.arange(n)[None] < torch.tensor([[n], [n - 77]])[:b]).to(dev)
+    if dead_row:
+        mask[-1] = False  # every key of the last batch row masked: each key weighs the same
+    freqs = torch.as_tensor(rotary_freqs(n, d), device=dev)
+    before = t_flash.flash_attention.launches, t_flash.rope_rows.launches
     out = t_flash.flash_attention(q, k, v, mask, rope_freqs=freqs, rope_all_heads=rope_all)
-    assert t_flash.flash_attention.launches == before + 1
+    prepass = int(dtype == torch.bfloat16 and d in (64, 128))  # the wgmma path rotates its rows in a pre-pass
+    assert (t_flash.flash_attention.launches, t_flash.rope_rows.launches) == (before[0] + 1, before[1] + prepass)
+    assert out.shape == q.shape and out.dtype == dtype
     ref = t_flash.flash_attention_plain(q.float(), k.float(), v.float(), mask, freqs, rope_all)
-    assert float(((out.float() - ref).abs() * mask[:, None, :, None]).max()) < tol
+    rows = mask | ~mask.any(-1, keepdim=True)
+    assert float(((out.float() - ref).abs() * rows[:, None, :, None]).max()) < tol
 
 
 @pytest.mark.cuda
-def test_conv_pos_kernel_matches_plain(dev):
-    g = torch.Generator().manual_seed(1)
-    x = (torch.randn((2, 200, 1024), generator=g) * 0.5).to(dev, torch.bfloat16)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_attention_reads_head_split_views(dev, dtype, d):
+    """(b, h, n, d) views of (b, n, h*d) projections give what the contiguous
+    call gives, bit for bit, and the result is a view of a (b, n, h, d) buffer."""
+    g = torch.Generator().manual_seed(d)
+    b, h, n = 2, 4, 300
+    flat = [torch.randn((b, n, h * d), generator=g).to(dev, dtype) for _ in range(3)]
+    views = [t.view(b, n, h, d).transpose(1, 2) for t in flat]
+    mask = (torch.arange(n)[None] < torch.tensor([[n], [211]])).to(dev)
+    freqs = torch.as_tensor(rotary_freqs(n, d), device=dev)
+    for rope_all in (False, True):
+        out = t_flash.flash_attention(*views, mask, rope_freqs=freqs, rope_all_heads=rope_all)
+        dense = t_flash.flash_attention(*(x.contiguous() for x in views), mask, rope_freqs=freqs, rope_all_heads=rope_all)
+        given = t_flash.flash_attention(*views, mask, rope_freqs=freqs, rope_all_heads=rope_all,
+                                        rope_cos_sin=t_flash.cos_sin_of(freqs))  # cos/sin made once by the caller
+        assert torch.equal(out, dense) and torch.equal(out, given)
+        assert out.transpose(1, 2).is_contiguous()
+
+
+# bf16 at group width 64: the fused pair, one launch; the ragged lens cover rows shorter than the kernel (< 31),
+# n no multiple of the 256-frame tile, n below the kernel width, batch 1
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,lens", [(200, (200, 120)), (700, (700, 20)), (300, (13, 256)), (20, (20, 7)), (1024, (1024,)),
+                                    (513, (1,))])
+def test_conv_pos_kernel_matches_plain(dev, n, lens):
+    g = torch.Generator().manual_seed(1 + n)
+    b = len(lens)
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    mask = (torch.arange(n, device=dev)[None] < lens[:, None])[..., None]
+    x = ((torch.randn((b, n, 1024), generator=g) * 0.5).to(dev) * mask).to(torch.bfloat16)
     w1, w2 = ((torch.rand((31, 64, 1024), generator=g) - 0.5) * 0.04 for _ in range(2))
     b1, b2 = ((torch.rand(1024, generator=g) - 0.5) * 0.04 for _ in range(2))
     w1, w2, b1, b2 = (t.to(dev, torch.bfloat16) for t in (w1, w2, b1, b2))
-    lens = torch.tensor([200, 120], dtype=torch.int32, device=dev)
     before = t_conv.conv_pos.launches
     out = t_conv.conv_pos(x, w1, b1, w2, b2, lens)
-    assert t_conv.conv_pos.launches == before + 2  # one launch per layer
+    assert t_conv.conv_pos.launches == before + 1  # the pair in one launch
     ref = t_conv.conv_pos_plain(x.float(), w1.float(), b1.float(), w2.float(), b2.float(), lens)
-    assert float((out.float() - ref).abs().max()) < 3e-2
+    assert float((out.float() - ref).abs().max()) < 3e-2  # every row, those at or past lens included
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,cg", [(torch.float32, 64), (torch.bfloat16, 8)])
+def test_conv_pos_cuda_core_layers_match_plain(dev, dtype, cg):
+    """fp32 and group widths other than 64 run the CUDA-core layer twice."""
+    g = torch.Generator().manual_seed(cg)
+    c, n = 16 * cg, 300
+    lens = torch.tensor([300, 90], dtype=torch.int32, device=dev)
+    keep = (torch.arange(n, device=dev)[None] < lens[:, None])[..., None]
+    x = ((torch.randn((2, n, c), generator=g) * 0.5).to(dev) * keep).to(dtype)
+    w1, w2 = (((torch.rand((31, cg, c), generator=g) - 0.5) * 0.1).to(dev, dtype) for _ in range(2))
+    b1, b2 = (((torch.rand(c, generator=g) - 0.5) * 0.1).to(dev) for _ in range(2))
+    before = t_conv.conv_pos.launches
+    out = t_conv.conv_pos(x, w1, b1, w2, b2, lens)
+    assert t_conv.conv_pos.launches == before + 2
+    ref = t_conv.conv_pos_plain(x.float(), w1.float(), b1, w2.float(), b2, lens)
+    assert float((out.float() - ref).abs().max()) < (1e-4 if dtype == torch.float32 else 3e-2)
 
 
 @pytest.mark.cuda
@@ -63,6 +116,15 @@ def test_wrappers_raise_on_unsupported_inputs(dev):
     with pytest.raises(TypeError):
         h = torch.zeros((1, 2, 64, 64), device=dev, dtype=torch.float16)
         t_flash.flash_attention(h, h, h)
+    x = torch.zeros((1, 2, 64, 64), device=dev, dtype=torch.bfloat16)
+    refused = {"other strides": (x, x.transpose(2, 3), x),
+               "a strided last axis": (torch.zeros((1, 2, 64, 128), device=dev, dtype=torch.bfloat16)[..., ::2],) * 3,
+               "rows of 136 bytes": (torch.zeros((1, 2, 64, 68), device=dev, dtype=torch.bfloat16)[..., :64],) * 3}
+    for what, (qq, kk, vv) in refused.items():
+        before = t_flash.flash_attention.launches, t_flash.rope_rows.launches
+        with pytest.raises(ValueError, match="strides"):
+            t_flash.flash_attention(qq, kk, vv, rope_freqs=torch.zeros((64, 64), device=dev))
+        assert (t_flash.flash_attention.launches, t_flash.rope_rows.launches) == before, what
 
 
 def _train_inputs(dev, dtype, n, d, dead_row):
@@ -123,7 +185,7 @@ def test_conv_pos_train_gradients(dev):
           for s in ((31, 64, 1024), (1024,), (31, 64, 1024), (1024,))]
     before = t_conv.conv_pos.launches
     y = t_conv.conv_pos_train(x, *ws)
-    assert t_conv.conv_pos.launches == before + 2
+    assert t_conv.conv_pos.launches == before + 1
     gy = torch.randn(y.shape, generator=g).to(dev, y.dtype)
     grads = torch.autograd.grad(y, [x, *ws], gy)
     ref_in = [t.detach().float().requires_grad_(True) for t in (x, *ws)]

@@ -106,3 +106,28 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "f5tts_tpu", "flax", "optax"), f"{path} imports {mod}"
+
+
+@pytest.mark.parametrize("argv", [["--demo-tiny"], ["--random-init"], ["--random-init", "-m", "F5TTS_Small"],
+                                  ["--random-init", "-v", "examples/vocab.txt"]])
+def test_cli_text_vocabulary_matches_the_jax_cli(monkeypatch, argv):
+    """The DiT's ``text_num_embeds`` the port's CLI picks equals the JAX CLI's
+    (the JAX ``init_dit`` is stubbed: no Base-size weights are built)."""
+    import f5tts_tpu.cli.infer as j_cli
+    import f5tts_tpu.models.dit as j_dit
+    from f5tts_tpu_torch.cli import infer as t_cli
+
+    class Built(Exception):
+        pass
+
+    def stub_init(key, cfg):
+        raise Built(cfg.text_num_embeds)
+
+    monkeypatch.setattr(j_dit, "init_dit", stub_init)
+    monkeypatch.chdir(REPO)
+    argv = [*argv, "--attn", "xla", "-t", "hi."]
+    with pytest.raises(Built) as built:
+        j_cli.build_engine(j_cli.build_argparser().parse_args(argv))
+    tok, n_embeds = t_cli.text_vocab(t_cli.build_argparser().parse_args([a for a in argv if a not in ("--attn", "xla")]))
+    assert n_embeds == built.value.args[0]
+    assert n_embeds == (256 if "--demo-tiny" in argv else tok.vocab_size)
