@@ -1059,7 +1059,9 @@ def train_kernel_phase(dev) -> list[dict]:
     rows = []
     for b, n, what in ((37, 1024, "one 38 400-frame batch"), (4, 1000, "ragged n"), (12, 3072, "30-s bucket")):
         g = torch.Generator(device="cpu").manual_seed(n)
-        q, k, v, do = (torch.randn((b, h, n, d), generator=g).to(dev, torch.bfloat16) for _ in range(4))
+        # as the training attention hands them over: q and k made by the RoPE's cat, v and dO head-split views
+        q, k = (torch.randn((b, h, n, d), generator=g).to(dev, torch.bfloat16) for _ in range(2))
+        v, do = _head_split(g, dev, torch.bfloat16, b, h, n, d)[:2]
         o, lse = ft.flash_attention_train_fwd(q, k, v)
         dq, dk, dv = ft.flash_attention_train_bwd(q, k, v, o, lse, do)
         torch.cuda.synchronize()
@@ -1082,35 +1084,106 @@ def train_kernel_phase(dev) -> list[dict]:
 
         fwd_ms = time_ms(lambda: ft.flash_attention_train_fwd(q, k, v))
         bwd_ms = time_ms(lambda: ft.flash_attention_train_bwd(q, k, v, o, lse, do))
-        qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+        qc, kc, vc = (t.contiguous() for t in (q, k, v))  # SDPA in its own layout
+        qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (qc, kc, vc))
         out = F.scaled_dot_product_attention(qs, ks, vs)
-        lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(qc, kc, vc))
         lib_bwd = time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), do, retain_graph=True))
         lib_both = time_ms(lambda: torch.autograd.grad(F.scaled_dot_product_attention(qs, ks, vs), (qs, ks, vs), do))
         plain_fwd = plain_bwd = None
-        if nb == b and what.startswith("one"):
-            plain_fwd = time_ms(lambda: ft.flash_attention_train_fwd_plain(q, k, v), iters=5, warmup=1)
-            plain_bwd = time_ms(lambda: ft.flash_attention_train_bwd_plain(q, k, v, o, lse, do), iters=5, warmup=1)
         elems = b * h * n * d
         fb, fby = bound_ms(4.0 * b * h * n * n * d, 4 * elems * 2 + b * h * n * 4, PEAK_BF16_FLOPS)
         bb, bby = bound_ms(10.0 * b * h * n * n * d, 8 * elems * 2 + b * h * n * 4, PEAK_BF16_FLOPS)
         log(f"train attention b={b} n={n} times: forward {fwd_ms:.4f} ms (bound {fb:.4f} {fby}, SDPA {lib_fwd:.4f}), "
             f"backward {bwd_ms:.4f} ms (bound {bb:.4f} {bby}, SDPA backward {lib_bwd:.4f}, SDPA forward+backward "
-            f"{lib_both:.4f}); plain forward {plain_fwd} ms, plain backward {plain_bwd} ms")
-        if what.startswith("one"):  # the main-path shape: the numbers of the kernels line
+            f"{lib_both:.4f}); one eager call each")
+        if what.startswith("one"):  # the main-path shape: views, determinism, graph times, the kernels line
+            views_equal = _train_views_check(ft, q, k, v, do, o, lse, (dq, dk, dv))
+            again = ft.flash_attention_train_bwd(q, k, v, o, lse, do)
+            deterministic = all(torch.equal(x, y) for x, y in zip((dq, dk, dv), again))
+            del again
+            log(f"train attention at the training shape: head-split views vs the same values contiguous, o / lse / "
+                f"dq / dk / dv bit-equal: {views_equal}; two backward calls bit-equal: {deterministic}")
+            check(views_equal, "the training kernels on head-split views differ from the contiguous call")
+            check(deterministic, "two backward calls differ")
+            plain_fwd = time_ms(lambda: ft.flash_attention_train_fwd_plain(q, k, v), iters=5, warmup=1)
+            plain_bwd = time_ms(lambda: ft.flash_attention_train_bwd_plain(q, k, v, o, lse, do), iters=5, warmup=1)
+            graph, variants = _train_graph_times(ft, q, k, v, do, o, lse, (qc, kc, vc), (qs, ks, vs))
+            # device time by kernel: the two backward passes apart, and SDPA's own kernels (the backend its
+            # autograd picks, which a CUDA graph does not capture here) beside them
+            profile_by_family("ten forward and ten backward calls at the training shape, then SDPA's ten of each",
+                              lambda: ([ft.flash_attention_train_fwd(q, k, v) for _ in range(10)],
+                                       [ft.flash_attention_train_bwd(q, k, v, o, lse, do) for _ in range(10)],
+                                       [F.scaled_dot_product_attention(qc, kc, vc) for _ in range(10)],
+                                       [torch.autograd.grad(out, (qs, ks, vs), do, retain_graph=True)
+                                        for _ in range(10)], torch.cuda.synchronize()),
+                              (("flash_attention_train", ("fwd_lse", "bwd_wgmma")),
+                               ("sdpa", ("flash", "fmha", "sdpa", "cudnn", "attention"))), top=8, device_only=True)
+            log(f"train attention device time per call in a CUDA graph of 10 calls: forward {graph['fwd']:.4f} ms, "
+                f"backward {graph['bwd']:.4f} ms (dQ + dK/dV); SDPA forward {graph['sdpa_fwd']}, backward (its flash "
+                f"backward op) {graph['sdpa_bwd']}, the two {graph['sdpa_both']}; bounds {fb:.4f} / "
+                f"{bb:.4f} ms (two passes that recompute S and dP: {bb * 1.4:.4f} ms); plain forward {plain_fwd:.4f} "
+                f"ms, plain backward {plain_bwd:.4f} ms (eager)")
+            log("train attention without and with the key bias (graph, ms per call): "
+                + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in variants.items()))
             rows = [
                 {"name": "flash_attention_train_fwd", "route": "cuda",
                  "source": "f5tts_tpu_torch/csrc/flash_attention_train.cu",
                  "replaces": "f5tts_tpu/ops/pallas/flash_attention.py:387", "max_abs_err": max(err_o, err_lse),
-                 "ms": fwd_ms, "plain_ms": plain_fwd, "bound_ms": fb, "bound_by": fby, "library_ms": lib_fwd},
+                 "ms": fwd_ms, "plain_ms": plain_fwd, "bound_ms": fb, "bound_by": fby, "library_ms": lib_fwd,
+                 "graph_ms": {"kernel": graph["fwd"], "sdpa": graph["sdpa_fwd"]},
+                 "variants_ms": {k_: v_ for k_, v_ in variants.items() if k_.startswith("fwd")}},
                 {"name": "flash_attention_train_bwd", "route": "cuda",
                  "source": "f5tts_tpu_torch/csrc/flash_attention_train.cu",
                  "replaces": "f5tts_tpu/ops/pallas/flash_attention.py:401", "max_abs_err": max(errs),
-                 "ms": bwd_ms, "plain_ms": plain_bwd, "bound_ms": bb, "bound_by": bby, "library_ms": lib_bwd},
+                 "ms": bwd_ms, "plain_ms": plain_bwd, "bound_ms": bb, "bound_by": bby, "library_ms": lib_bwd,
+                 "graph_ms": {"kernel": graph["bwd"], "sdpa_backward": graph["sdpa_bwd"],
+                              "sdpa_forward_backward": graph["sdpa_both"]},
+                 "variants_ms": {k_: v_ for k_, v_ in variants.items() if k_.startswith("bwd")}},
             ]
-        del q, k, v, do, o, lse, dq, dk, dv, qs, ks, vs, out
+        del q, k, v, do, o, lse, dq, dk, dv, qs, ks, vs, qc, kc, vc, out
         torch.cuda.empty_cache()
     return rows
+
+
+def _train_views_check(ft, q, k, v, do, o, lse, grads) -> bool:
+    """The same values as contiguous tensors give bit-equal o, lse, dq, dk, dv."""
+    dense = [t.contiguous() for t in (q, k, v, do)]
+    o_c, lse_c = ft.flash_attention_train_fwd(*dense[:3])
+    same = torch.equal(o, o_c) and torch.equal(lse, lse_c)
+    grads_c = ft.flash_attention_train_bwd(*dense[:3], o_c.contiguous(), lse_c, dense[3])
+    same = same and all(torch.equal(x, y) for x, y in zip(grads, grads_c))
+    del dense, o_c, lse_c, grads_c
+    return same
+
+
+def _train_graph_times(ft, q, k, v, do, o, lse, contiguous, leaves) -> tuple[dict, dict]:
+    """Device time per call in a CUDA graph of 10 calls: the kernels as the
+    training path calls them, SDPA beside them, and the key-bias paths of
+    both under an all-True mask."""
+    every = torch.ones(q.shape[0], q.shape[2], dtype=torch.bool, device=q.device)
+    graph = {"fwd": time_graph_ms([lambda: ft.flash_attention_train_fwd(q, k, v)] * 10),
+             "bwd": time_graph_ms([lambda: ft.flash_attention_train_bwd(q, k, v, o, lse, do)] * 10)}
+    qc, kc, vc = contiguous
+    graph["sdpa_fwd"] = time_graph_ms([lambda: F.scaled_dot_product_attention(qc, kc, vc)] * 10)
+    try:  # SDPA's flash backward called as one op (autograd does not capture here): the library yardstick only
+        fwd_op = torch.ops.aten._scaled_dot_product_flash_attention
+        bwd_op = torch.ops.aten._scaled_dot_product_flash_attention_backward
+        out, lse_s, cq, ck, mq, mk, seed, offset, _ = fwd_op(qc, kc, vc, 0.0, False, False)
+        doc = do.contiguous()
+        graph["sdpa_bwd"] = time_graph_ms(
+            [lambda: bwd_op(doc, qc, kc, vc, out, lse_s, cq, ck, mq, mk, 0.0, False, seed, offset)] * 10)
+        graph["sdpa_both"] = graph["sdpa_fwd"] + graph["sdpa_bwd"]
+    except (RuntimeError, TypeError, AttributeError) as e:
+        log(f"SDPA's flash backward op could not be timed in a CUDA graph ({e}); its eager times stand")
+        graph["sdpa_both"] = graph["sdpa_bwd"] = None
+    variants = {
+        "fwd_no_bias": graph["fwd"],
+        "fwd_bias_all_valid": time_graph_ms([lambda: ft.flash_attention_train_fwd(q, k, v, every)] * 10),
+        "bwd_no_bias": graph["bwd"],
+        "bwd_bias_all_valid": time_graph_ms([lambda: ft.flash_attention_train_bwd(q, k, v, o, lse, do, every)] * 10),
+    }
+    return graph, variants
 
 
 def train_grad_parity(dev, tok) -> None:
@@ -1208,7 +1281,7 @@ def train_phase(dev, model, shapes, tok, card: str, launches: dict) -> None:
         f"mel-frames/s ({first[0] * first[1] / med:.0f} padded frames/s); other steps "
         f"{[(shape, round(t, 4)) for shape, t in zip(shapes, times) if shape != first]}")
     profile_by_family("one train step", lambda: (trainer.step(state, batches[2]), torch.cuda.synchronize()), (
-        ("flash_attention_train_fwd", ("fwd_lse",)), ("flash_attention_train_bwd", ("bwd_dkdv", "bwd_dq")),
+        ("flash_attention_train_fwd", ("fwd_lse",)), ("flash_attention_train_bwd", ("bwd_wgmma", "bwd_dkdv", "bwd_dq")),
         ("conv_pos", ("conv_pair", "conv_generic"))), top=8)
     del state, trainer
     torch.cuda.empty_cache()
@@ -1468,7 +1541,7 @@ def main():
     log(json.dumps({"kernels": [{key: k[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
         "bound_by", "library_ms", "launches_by_path",
-        *(key for key in ("int_mm_ms", "bf16_matmul_ms", "mma_sync_s8_top_s", "graph_ms", "other_shapes",
+        *(key for key in ("int_mm_ms", "bf16_matmul_ms", "mma_sync_s8_top_s", "graph_ms", "variants_ms", "other_shapes",
                           "layouts_ms", "ablation_rows", "rope_rows_launches",
                           "rope_rows_launches_by_path") if key in k))}
         for k in kernels]}))

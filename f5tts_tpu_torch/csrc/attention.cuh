@@ -27,6 +27,14 @@ __device__ __forceinline__ void stage_key_bias(float* bias, const uint8_t* key_m
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) { return *reinterpret_cast<const uint32_t*>(p); }
 
+// 2^x in one MUFU instruction, a denormal result flushed to zero (exp2f
+// without fast math wraps the same instruction in a denormal fix-up).
+__device__ __forceinline__ float ex2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);

@@ -31,18 +31,12 @@
 //   and counted by the wrapper) rotates head 0's (or every head's) q and k rows
 //   in 16-byte vectors into a tensor the wrapper allocates; the main kernel
 //   reads the rotated rows for those heads from there.
-// - flash_wgmma: one block of 3 warpgroups per (bh, 128 query rows).
-//   Warpgroup 0 is the producer: one warp keeps 128-key K/V tiles in flight
-//   through TMA (4-D maps carry the views' strides, 128-byte swizzle, zero
-//   fill past n) in a ring of 3 stages (2 at d 128) with full/empty mbarriers,
-//   and writes each tile's key bias beside it; setmaxnreg gives its registers
-//   to the consumers. Warpgroups 1-2 own 64 query rows each: Q in registers,
-//   S = Q K^T on wgmma m64n128k16 (K from shared memory, K-major), the online
-//   softmax on the accumulators, O += P V with P repacked from S into
-//   registers and V an MN-major shared-memory operand. Each warpgroup issues
-//   S of tile j together with P V of tile j-1 and runs the softmax of S_j
-//   while P V is on the tensor cores; named barriers make the two warpgroups
-//   take turns issuing, so one's softmax covers the other's products
+// - flash_wgmma: one block of 3 warpgroups per (bh, 128 query rows), the
+//   body in flash_wgmma.cuh (shared with the training forward): a producer
+//   warp keeps 128-key K/V tiles in flight through TMA (4-D maps carry the
+//   views' strides) with the key bias beside each tile; two consumer
+//   warpgroups of 64 query rows issue S_j = Q K_j^T together with
+//   P_{j-1} V_{j-1} on wgmma and take turns issuing through named barriers
 //   (without the turns a call took 3.5-6.4% longer; PERF.md has both times).
 // bf16 at d 32 (the tiny demo geometry) keeps the first design, flash_fwd_bf16:
 // one block of 4 warps per (bh, 64 query rows), 64-key K/V tiles staged with
@@ -59,6 +53,7 @@
 
 #include "attention.cuh"
 #include "common.cuh"
+#include "flash_wgmma.cuh"
 #include "hopper.cuh"
 
 using f5::cp_async16;
@@ -395,8 +390,6 @@ flash_fwd_fp32(const float* __restrict__ q, const float* __restrict__ k, const f
 // bf16 at d 64 / 128: RoPE pre-pass, then wgmma in a warp-specialised block
 // ---------------------------------------------------------------------------
 
-namespace hp = f5::hopper;
-
 // The rotated rows, once per call: q and k of head 0 (rope_mode 1) or of
 // every head (2) into rotated (2, b, hr, n, D), 8 elements (16 bytes) a
 // thread, rounded as load_rot rounds.
@@ -435,272 +428,39 @@ rope_rows_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const flo
         *reinterpret_cast<const uint4*>(res);
 }
 
-constexpr int WQ = 128;  // query rows per block: 2 consumer warpgroups of 64
-constexpr int WK = 128;  // keys per tile
-constexpr int WTHREADS = 384;
+namespace fw = f5::fwdw;
 
+// The serving block: head 0's (or every head's) K and Q rows come rotated
+// from the pre-pass; the key bias always (the engine passes a mask); no lse.
 template <int D>
-struct WCfg {
-    static constexpr int STAGES = D == 64 ? 3 : 2;
-    static constexpr int PANEL = WK * 128;          // bytes of one 64-column panel of a tile
-    static constexpr int TILE = PANEL * (D / 64);   // K (or V) tile bytes
-    static constexpr int STAGE = 2 * TILE;          // K then V
-    static constexpr size_t SMEM = 1024 + (size_t)STAGES * STAGE + STAGES * WK * 4 + 2 * STAGES * 8;
-};
-
-// s[64]: scores of rows (g, g+8) of this warp x 128 keys, columns 8i + 2tq + {0,1}.
-template <int D>
-__device__ __forceinline__ void issue_s(float (&s)[64], const uint32_t (&qf)[D / 16][4], const unsigned char* kt) {
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-        hp::wgmma_m64n128k16_rs<0>(s, qf[kk], hp::desc_b128(kt + (kk / 4) * WCfg<D>::PANEL + (kk % 4) * 32, 16, 1024),
-                                   kk > 0);
-}
-
-template <int D>
-__device__ __forceinline__ void issue_pv(float (&acc)[D / 2], const uint32_t (&p)[WK / 16][4], const unsigned char* vt) {
-#pragma unroll
-    for (int kk = 0; kk < WK / 16; ++kk) {
-        const uint64_t desc = hp::desc_b128(vt + kk * 2048, WCfg<D>::PANEL, 1024);
-        if constexpr (D == 64)
-            hp::wgmma_m64n64k16_rs<1>(acc, p[kk], desc, 1);
-        else
-            hp::wgmma_m64n128k16_rs<1>(acc, p[kk], desc, 1);
-    }
-}
-
-template <int D>
-__global__ void __launch_bounds__(WTHREADS, 1)
+__global__ void __launch_bounds__(fw::WTHREADS, 1)
 flash_wgmma(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
             const __grid_constant__ CUtensorMap krmap, const bf16* __restrict__ q, const bf16* __restrict__ qr,
             bf16* __restrict__ o, const uint8_t* __restrict__ key_mask, int h, int n, int rope_mode, float scale,
             Strides st) {
-    using C = WCfg<D>;
     extern __shared__ unsigned char smem_raw[];
-    unsigned char* base = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-    float* bias = reinterpret_cast<float*>(base + C::STAGES * C::STAGE);  // STAGES x WK, in log2 units
-    uint64_t* full = reinterpret_cast<uint64_t*>(bias + C::STAGES * WK);
-    uint64_t* empty = full + C::STAGES;
-
     const int bh = blockIdx.y;
     const int bi = bh / h, head = bh % h;
-    const int q0 = blockIdx.x * WQ;
     const bool rot = rope_mode == 2 || (rope_mode == 1 && head == 0);
     const int hr = rope_mode == 2 ? h : 1;        // heads in the rotated rows
     const int rhead = rope_mode == 2 ? head : 0;  // this head's index there
-    const int ntiles = (n + WK - 1) / WK;
-    const int tid = threadIdx.x;
-    if (tid == 0) {
-        for (int i = 0; i < C::STAGES; ++i) {
-            hp::mbar_init(&full[i], 32);  // the producer warp: bias rows written, copies announced
-            hp::mbar_init(&empty[i], 8);  // one arrival per consumer warp
-        }
-        hp::mbar_init_fence();
-    }
-    __syncthreads();
-
-    if (tid < 128) {  // producer warpgroup; its first warp keeps the K/V ring full
-        hp::setmaxnreg_dec<24>();
-        if (tid < 32) {
-            const CUtensorMap* km = rot ? &krmap : &kmap;
-            const int kh = rot ? rhead : head;
-            for (int j = 0; j < ntiles; ++j) {
-                const int stage = j % C::STAGES;
-                hp::mbar_wait(&empty[stage], ((j / C::STAGES) & 1) ^ 1);
-#pragma unroll
-                for (int e = 0; e < WK / 32; ++e) {
-                    const int col = tid * (WK / 32) + e, key = j * WK + col;
-                    const float bv = key >= n ? -INFINITY
-                                              : (key_mask != nullptr && !key_mask[(size_t)bi * n + key] ? NEG_BIG : 0.0f);
-                    bias[stage * WK + col] = bv * LOG2E;
-                }
-                if (tid == 0) {
-                    unsigned char* kt = base + stage * C::STAGE;
-                    hp::mbar_arrive_expect_tx(&full[stage], C::STAGE);
-#pragma unroll
-                    for (int pnl = 0; pnl < D / 64; ++pnl) {
-                        hp::tma_load_4d(kt + pnl * C::PANEL, km, &full[stage], pnl * 64, j * WK, kh, bi);
-                        hp::tma_load_4d(kt + C::TILE + pnl * C::PANEL, &vmap, &full[stage], pnl * 64, j * WK, head, bi);
-                    }
-                } else {
-                    hp::mbar_arrive(&full[stage]);
-                }
-            }
-        }
-    } else {  // consumer warpgroups: 64 query rows each
-        hp::setmaxnreg_inc<240>();
-        const int ctid = tid - 128;
-        const int wg = ctid / 128;
-        const int warp = (ctid / 32) % 4;
-        const int lane = ctid % 32;
-        const int g = lane >> 2, tq = lane & 3;
-        const int r0 = q0 + wg * 64 + warp * 16 + g, r1 = r0 + 8;
-
-        // this thread's Q fragments, straight from global memory (rows past n are 0)
-        uint32_t qf[D / 16][4];
-        {
-            const bf16* qb = rot ? qr + (((size_t)bi * hr + rhead) * n) * D : q + (size_t)bi * st.sb + (size_t)head * st.sh;
-            const size_t rs = rot ? (size_t)D : (size_t)st.sn;
-#pragma unroll
-            for (int kk = 0; kk < D / 16; ++kk) {
-                const int c = kk * 16 + tq * 2;
-                qf[kk][0] = r0 < n ? ld32(qb + r0 * rs + c) : 0u;
-                qf[kk][1] = r1 < n ? ld32(qb + r1 * rs + c) : 0u;
-                qf[kk][2] = r0 < n ? ld32(qb + r0 * rs + c + 8) : 0u;
-                qf[kk][3] = r1 < n ? ld32(qb + r1 * rs + c + 8) : 0u;
-            }
-        }
-
-        // Scores in log2 units, start value too: a row whose keys are all
-        // masked then weighs every key equally, as the reference does.
-        const float scale_log2 = scale * LOG2E;
-        float m0 = NEG_BIG * LOG2E, m1 = NEG_BIG * LOG2E, l0 = 0.0f, l1 = 0.0f;
-        float acc[D / 2];
-#pragma unroll
-        for (int e = 0; e < D / 2; ++e) acc[e] = 0.0f;
-        float s[64];
-        uint32_t p[WK / 16][4];
-        const int my_bar = 1 + wg, other_bar = 2 - wg;
-        if (wg == 1) hp::named_arrive(1, 256);  // the warpgroups take turns issuing (named barriers 1, 2): 0 first
-
-        // softmax of tile `stage` in s: exponentials in place, row sums, the
-        // running max; returns the rescale factors of the old state
-        auto softmax = [&](int stage, float& alpha0, float& alpha1) {
-            const float* bb = bias + stage * WK;
-            float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-            for (int i = 0; i < 16; ++i) {
-#pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                    const float bc = bb[8 * i + 2 * tq + e];
-                    s[4 * i + e] = s[4 * i + e] * scale_log2 + bc;
-                    s[4 * i + 2 + e] = s[4 * i + 2 + e] * scale_log2 + bc;
-                    mx0 = fmaxf(mx0, s[4 * i + e]);
-                    mx1 = fmaxf(mx1, s[4 * i + 2 + e]);
-                }
-            }
-            mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-            mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-            mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-            mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-            const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-            alpha0 = exp2f(m0 - mn0);
-            alpha1 = exp2f(m1 - mn1);
-            float sum0 = 0.0f, sum1 = 0.0f;
-#pragma unroll
-            for (int i = 0; i < 16; ++i) {
-#pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                    s[4 * i + e] = exp2f(s[4 * i + e] - mn0);
-                    s[4 * i + 2 + e] = exp2f(s[4 * i + 2 + e] - mn1);
-                    sum0 += s[4 * i + e];
-                    sum1 += s[4 * i + 2 + e];
-                }
-            }
-            l0 = l0 * alpha0 + sum0;
-            l1 = l1 * alpha1 + sum1;
-            m0 = mn0;
-            m1 = mn1;
-        };
-        auto rescale_and_pack = [&](float alpha0, float alpha1) {
-#pragma unroll
-            for (int i = 0; i < D / 8; ++i) {
-                acc[4 * i] *= alpha0;
-                acc[4 * i + 1] *= alpha0;
-                acc[4 * i + 2] *= alpha1;
-                acc[4 * i + 3] *= alpha1;
-            }
-#pragma unroll
-            for (int kk = 0; kk < WK / 16; ++kk) {
-                p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
-                p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-                p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-                p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-            }
-        };
-        auto release = [&](int stage) {
-            __syncwarp();
-            if (lane == 0) hp::mbar_arrive(&empty[stage]);
-        };
-
-        // tile 0: S alone
-        hp::mbar_wait(&full[0], 0);
-        hp::named_sync(my_bar, 256);
-        hp::fence_regs(s);
-        hp::wgmma_fence();
-        issue_s<D>(s, qf, base);
-        hp::wgmma_commit();
-        hp::named_arrive(other_bar, 256);
-        hp::wgmma_wait<0>();
-        hp::fence_regs(s);
-        {
-            float a0, a1;
-            softmax(0, a0, a1);
-            rescale_and_pack(a0, a1);
-        }
-        // tile j: S_j and P_{j-1} V_{j-1} in flight together; the softmax of
-        // S_j runs while P_{j-1} V_{j-1} is still on the tensor cores
-        for (int j = 1; j < ntiles; ++j) {
-            const int stage = j % C::STAGES, prev = (j - 1) % C::STAGES;
-            hp::mbar_wait(&full[stage], (j / C::STAGES) & 1);
-            hp::named_sync(my_bar, 256);
-            hp::fence_regs(s);
-            hp::fence_regs(acc);
-            hp::fence_regs(p);
-            hp::wgmma_fence();
-            issue_s<D>(s, qf, base + stage * C::STAGE);
-            hp::wgmma_commit();
-            issue_pv<D>(acc, p, base + prev * C::STAGE + C::TILE);
-            hp::wgmma_commit();
-            hp::named_arrive(other_bar, 256);
-            hp::wgmma_wait<1>();
-            hp::fence_regs(s);
-            float a0, a1;
-            softmax(stage, a0, a1);
-            hp::wgmma_wait<0>();
-            hp::fence_regs(acc);
-            hp::fence_regs(p);
-            release(prev);
-            rescale_and_pack(a0, a1);
-        }
-        // the last tile's PV
-        const int last = (ntiles - 1) % C::STAGES;
-        hp::named_sync(my_bar, 256);
-        hp::fence_regs(acc);
-        hp::fence_regs(p);
-        hp::wgmma_fence();
-        issue_pv<D>(acc, p, base + last * C::STAGE + C::TILE);
-        hp::wgmma_commit();
-        if (wg == 0) hp::named_arrive(other_bar, 256);
-        hp::wgmma_wait<0>();
-        hp::fence_regs(acc);
-        release(last);
-
-        l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-        l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-        l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-        l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-        const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
-#pragma unroll
-        for (int i = 0; i < D / 8; ++i) {
-            const int c = 8 * i + 2 * tq;
-            if (r0 < n)
-                *reinterpret_cast<uint32_t*>(o + out_row(bi, r0, head, n, h, D) + c) =
-                    pack_bf16(acc[4 * i] / den0, acc[4 * i + 1] / den0);
-            if (r1 < n)
-                *reinterpret_cast<uint32_t*>(o + out_row(bi, r1, head, n, h, D) + c) =
-                    pack_bf16(acc[4 * i + 2] / den1, acc[4 * i + 3] / den1);
-        }
-    }
-}
-
-// A (D, n, heads, b) map of 128-row boxes over a bf16 tensor with element
-// strides (sb, sh, sn) and a contiguous last axis.
-int make_rows_map(CUtensorMap* map, const void* ptr, int d, int n, int heads, int b, long long sb, long long sh,
-                  long long sn) {
-    const uint64_t dims[4] = {(uint64_t)d, (uint64_t)n, (uint64_t)heads, (uint64_t)b};
-    const uint64_t strides[3] = {(uint64_t)sn * 2, (uint64_t)sh * 2, (uint64_t)sb * 2};
-    return hp::make_map_bf16(map, ptr, 4, dims, strides, WK);
+    fw::Args a;
+    a.kmap = rot ? &krmap : &kmap;
+    a.vmap = &vmap;
+    a.qmap = nullptr;
+    a.kh = rot ? rhead : head;
+    a.vh = head;
+    a.qrows = rot ? qr + (((size_t)bi * hr + rhead) * n) * D : q + (size_t)bi * st.sb + (size_t)head * st.sh;
+    a.qsn = rot ? (long long)D : st.sn;
+    a.o = o;
+    a.lse = nullptr;
+    a.key_mask = key_mask;
+    a.bi = bi;
+    a.head = head;
+    a.h = h;
+    a.n = n;
+    a.scale = scale;
+    fw::block<D, true, false, false>(smem_raw, a);
 }
 
 template <int D>
@@ -710,21 +470,22 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, const voi
     const int hr = rope_mode == 2 ? h : 1;
     const bf16* qr = rope_mode != 0 ? static_cast<const bf16*>(rotated) : static_cast<const bf16*>(q);
     CUtensorMap kmap, vmap, krmap;
-    int err = make_rows_map(&kmap, k, D, n, h, b, st.sb, st.sh, st.sn);
-    if (!err) err = make_rows_map(&vmap, v, D, n, h, b, st.sb, st.sh, st.sn);
+    int err = fw::make_rows_map(&kmap, k, D, n, h, b, st.sb, st.sh, st.sn);
+    if (!err) err = fw::make_rows_map(&vmap, v, D, n, h, b, st.sb, st.sh, st.sn);
     if (err) return err;
     krmap = kmap;
     if (rope_mode != 0) {
-        err = make_rows_map(&krmap, qr + (size_t)b * hr * n * D, D, n, hr, b, (long long)hr * n * D, (long long)n * D, D);
+        err = fw::make_rows_map(&krmap, qr + (size_t)b * hr * n * D, D, n, hr, b, (long long)hr * n * D,
+                                (long long)n * D, D);
         if (err) return err;
     }
-    constexpr size_t smem = WCfg<D>::SMEM;
+    constexpr size_t smem = fw::Cfg<D, false>::SMEM;
     cudaError_t e = cudaFuncSetAttribute(flash_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    const dim3 grid((n + WQ - 1) / WQ, b * h);
-    flash_wgmma<D><<<grid, WTHREADS, smem, stream>>>(kmap, vmap, krmap, static_cast<const bf16*>(q), qr,
-                                                     static_cast<bf16*>(o), static_cast<const uint8_t*>(key_mask), h,
-                                                     n, rope_mode, scale, st);
+    const dim3 grid((n + fw::Cfg<D, false>::BQ - 1) / fw::Cfg<D, false>::BQ, b * h);
+    flash_wgmma<D><<<grid, fw::WTHREADS, smem, stream>>>(kmap, vmap, krmap, static_cast<const bf16*>(q), qr,
+                                                         static_cast<bf16*>(o), static_cast<const uint8_t*>(key_mask),
+                                                         h, n, rope_mode, scale, st);
     return (int)cudaGetLastError();
 }
 

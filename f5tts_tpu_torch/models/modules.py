@@ -254,14 +254,14 @@ def attention(p, x, heads: int, rope_freqs=None, mask=None, impl: str = "flash",
         q = apply_rotary(q, rope_freqs)
         k = apply_rotary(k, rope_freqs)
 
-    def split_heads(t):  # a (b, h, n, d) view; the serving kernel reads it through its strides
+    def split_heads(t):  # a (b, h, n, d) view; the kernels read it through its strides
         return t.reshape(b, n, heads, -1).transpose(1, 2)
 
     q, k, v = split_heads(q), split_heads(k), split_heads(v)
-    if impl != "flash" or training:  # the plain and training paths take contiguous heads
+    if impl != "flash":  # the plain path takes contiguous heads
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if impl == "flash" and training:
-        if rope_freqs is not None:
+        if rope_freqs is not None:  # the RoPE's cat is q's and k's one copy; v stays a view
             q, k = _rope_heads(q, rope_freqs, rope_all_heads), _rope_heads(k, rope_freqs, rope_all_heads)
         o = flash_attention_train(q, k, v, mask)
     elif impl == "flash":
@@ -274,7 +274,7 @@ def attention(p, x, heads: int, rope_freqs=None, mask=None, impl: str = "flash",
         o = sdpa(q, k, v, mask)
     else:
         raise ValueError(f"unknown attention impl {impl!r}")
-    o = linear(p["to_out"], o.transpose(1, 2).reshape(b, n, -1))  # a view of the serving kernel's (b, n, h, d) output
+    o = linear(p["to_out"], o.transpose(1, 2).reshape(b, n, -1))  # a view of the kernels' (b, n, h, d) output
     if dropout_seed is not None and dropout_rate > 0.0:
         o = dropout(o, dropout_seed, dropout_rate)  # to_out = [Linear, Dropout]
     if mask is not None:

@@ -65,7 +65,10 @@ def strides(t) -> tuple[int, ...]:
     return tuple(x if z > 1 else span for x, z in zip(t.stride(), t.shape))
 
 
-def _check(q, k, v, key_mask, rope_freqs):
+def check_operands(q, k, v, key_mask) -> None:
+    """What every attention kernel takes: q, k, v of one ``(b, h, n, d)``
+    shape and one dtype (bf16 or fp32) on one device, a built head dim,
+    ``b*h`` within the grid, ``key_mask (b, n)`` bool or None."""
     if not (q.shape == k.shape == v.shape) or q.ndim != 4:
         raise ValueError(f"q, k, v must share one (b, h, n, d) shape, got {q.shape}, {k.shape}, {v.shape}")
     b, h, n, d = q.shape
@@ -75,17 +78,22 @@ def _check(q, k, v, key_mask, rope_freqs):
         raise ValueError(f"flash_attention takes head dims {_HEAD_DIMS}, got {d}")
     if b * h > 65535:
         raise ValueError(f"b*h = {b * h} exceeds the kernel's grid limit of 65535")
-    vec = 16 // q.element_size()  # elements of a 16-byte row step
-    st = strides(q)
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"k and v must be on {q.device}")
+    if key_mask is not None:
+        if key_mask.shape != (b, n) or key_mask.dtype != torch.bool or key_mask.device != q.device:
+            raise ValueError(f"key_mask must be a ({b}, {n}) bool tensor on {q.device}")
+
+
+def _check(q, k, v, key_mask, rope_freqs):
+    check_operands(q, k, v, key_mask)
+    b, h, n, d = q.shape
+    vec = 16 // q.element_size()  # elements of a 16-byte row step
+    st = strides(q)
     if (strides(k) != st or strides(v) != st or st[3] != 1 or st[0] % vec or st[1] % vec or st[2] % vec
             or (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16):
         raise ValueError(f"q, k, v must share strides with a contiguous last axis, the others multiples of 16 "
                          f"bytes, 16-byte aligned; got strides {q.stride()}, {k.stride()}, {v.stride()}")
-    if key_mask is not None:
-        if key_mask.shape != (b, n) or key_mask.dtype != torch.bool or key_mask.device != q.device:
-            raise ValueError(f"key_mask must be a ({b}, {n}) bool tensor on {q.device}")
     if rope_freqs is not None and (rope_freqs.shape != (n, d) or rope_freqs.device != q.device):
         raise ValueError(f"rope_freqs must be ({n}, {d}) on {q.device}, got {tuple(rope_freqs.shape)}")
     return st

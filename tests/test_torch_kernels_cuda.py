@@ -143,18 +143,26 @@ def _rel_err(out, ref):
 
 # bf16 kernel vs fp32 plain on the same bf16 inputs: o and the gradients within
 # 2e-2 / 3e-2 of the peak (p and dS are rounded to bf16 in the kernel), lse
-# within 1e-3; fp32 kernel within 1e-4 (summation order only)
+# within 1e-3; fp32 kernel within 1e-4 (summation order only). bf16 d 64 / 128
+# forward and d 64 backward: the wgmma kernels (with and without the key bias);
+# the rest: mma.sync / CUDA cores.
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 3e-2), (torch.float32, 1e-4)])
-@pytest.mark.parametrize("n,d,dead_row", [(256, 64, False), (200, 64, True), (130, 32, False), (96, 128, False)])
-def test_flash_train_kernels_match_plain(dev, dtype, tol, n, d, dead_row):
+@pytest.mark.parametrize("n,d,dead_row,masked", [
+    (256, 64, False, True), (200, 64, True, True), (130, 32, False, True), (96, 128, False, True),
+    (1000, 64, True, True), (1000, 128, False, True),
+    (256, 64, False, False), (130, 32, False, False), (96, 128, False, False), (1000, 64, False, False)])
+def test_flash_train_kernels_match_plain(dev, dtype, tol, n, d, dead_row, masked):
     q, k, v, do, mask = _train_inputs(dev, dtype, n, d, dead_row)
+    mask = mask if masked else None
     f0, b0 = t_train.flash_attention_train_fwd.launches, t_train.flash_attention_train_bwd.launches
     o, lse = t_train.flash_attention_train_fwd(q, k, v, mask)
     dq, dk, dv = t_train.flash_attention_train_bwd(q, k, v, o, lse, do, mask)
     torch.cuda.synchronize()
     assert t_train.flash_attention_train_fwd.launches == f0 + 1
-    assert t_train.flash_attention_train_bwd.launches == b0 + 2  # dK/dV and dQ kernels
+    assert t_train.flash_attention_train_bwd.launches == b0 + 2  # dQ (with D) and dK/dV kernels
+    if dead_row:  # every key of batch row 1 masked: lse = -1e30 exactly, as the TPU kernel gives
+        assert bool((lse[1] == -1e30).all())
     ref_o, ref_lse = t_train.flash_attention_train_fwd_plain(q.float(), k.float(), v.float(), mask)
     assert _rel_err(o, ref_o) < (2e-2 if dtype == torch.bfloat16 else tol)
     assert float((lse - ref_lse).abs().max()) < (1e-3 if dtype == torch.bfloat16 else 1e-4)
@@ -162,6 +170,73 @@ def test_flash_train_kernels_match_plain(dev, dtype, tol, n, d, dead_row):
     for got, ref in zip((dq, dk, dv), refs):
         assert bool(torch.isfinite(got).all())
         assert _rel_err(got, ref) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("masked", [True, False])
+def test_flash_train_reads_head_split_views(dev, dtype, d, masked):
+    """q, k, v and dO as (b, h, n, d) views of (b, n, h*d) tensors (q and k
+    of one fused projection, v and dO apart), each with its own strides, give
+    what the same values made contiguous give, bit for bit: o, lse, dq, dk,
+    dv. Before the kernels read strides they indexed every operand as
+    contiguous and returned wrong values here with no error."""
+    g = torch.Generator().manual_seed(5 + d)
+    b, h, n = 2, 4, 300
+    qk = torch.randn((b, n, 2 * h * d), generator=g).to(dev, dtype)
+    q, k = (t.reshape(b, n, h, d).transpose(1, 2) for t in qk.split(h * d, -1))
+    v, do = (torch.randn((b, n, h * d), generator=g).to(dev, dtype).view(b, n, h, d).transpose(1, 2)
+             for _ in range(2))
+    mask = (torch.arange(n)[None] < torch.tensor([[n], [211]])).to(dev) if masked else None
+    assert len({t_train.kernel_strides(t) for t in (q, k, v, do)}) == 2  # q, k share one layout; v, dO another
+    o, lse = t_train.flash_attention_train_fwd(q, k, v, mask)
+    dense = [t.contiguous() for t in (q, k, v, do)]
+    o_c, lse_c = t_train.flash_attention_train_fwd(*dense[:3], mask)
+    assert torch.equal(o, o_c) and torch.equal(lse, lse_c)
+    assert o.transpose(1, 2).is_contiguous()  # a view of a (b, n, h, d) buffer
+    grads = t_train.flash_attention_train_bwd(q, k, v, o, lse, do, mask)
+    grads_c = t_train.flash_attention_train_bwd(*dense[:3], o_c.contiguous(), lse_c, dense[3], mask)
+    for got, want in zip(grads, grads_c):
+        assert torch.equal(got, want) and got.transpose(1, 2).is_contiguous()
+    ref_o, _ = t_train.flash_attention_train_fwd_plain(*(t.float() for t in dense[:3]), mask)
+    assert _rel_err(o, ref_o) < (2e-2 if dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [True, False])
+def test_flash_train_backward_is_deterministic(dev, masked):
+    """Two backward calls at the training head shape (16 heads of 64, n
+    1024) are bit-equal: each block owns its rows, no atomics."""
+    g = torch.Generator().manual_seed(6)
+    b, h, n, d = 2, 16, 1024, 64
+    q, k, v, do = (torch.randn((b, h, n, d), generator=g).to(dev, torch.bfloat16) for _ in range(4))
+    mask = (torch.arange(n)[None] < torch.tensor([[n], [700]])).to(dev) if masked else None
+    o, lse = t_train.flash_attention_train_fwd(q, k, v, mask)
+    first = t_train.flash_attention_train_bwd(q, k, v, o, lse, do, mask)
+    for _ in range(2):
+        again = t_train.flash_attention_train_bwd(q, k, v, o, lse, do, mask)
+        assert all(torch.equal(a, b_) for a, b_ in zip(first, again))
+    assert all(bool(torch.isfinite(t).all()) for t in first)
+
+
+@pytest.mark.cuda
+def test_flash_train_wrapper_raises_on_layouts_the_kernels_do_not_read(dev):
+    q, k, v, do, _ = _train_inputs(dev, torch.bfloat16, 128, 64, False)
+    odd = torch.zeros((2, 3, 128, 72), device=dev, dtype=torch.bfloat16)[..., 1:65]  # a 2-byte offset start
+    before = t_train.flash_attention_train_bwd.launches
+    for bad in (q.transpose(2, 3).contiguous().transpose(2, 3), odd, q[:, :1].expand(2, 3, 128, 64)):
+        with pytest.raises(ValueError, match="strides"):
+            t_train.flash_attention_train_fwd(bad, k, v)
+        o, lse = t_train.flash_attention_train_fwd(q, k, v)
+        with pytest.raises(ValueError, match="strides"):
+            t_train.flash_attention_train_bwd(q, k, v, o, lse, bad)
+    assert t_train.flash_attention_train_bwd.launches == before
+    # the autograd path copies a gradient it cannot read (here an expanded one) once, then launches
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    grads = torch.autograd.grad(t_train.flash_attention_train(*leaves).sum(), leaves)
+    assert t_train.flash_attention_train_bwd.launches == before + 2
+    assert all(bool(torch.isfinite(t).all()) for t in grads)
 
 
 @pytest.mark.cuda
