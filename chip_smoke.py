@@ -50,7 +50,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    against a 503-position self-attention cache with a causal bound in the
    middle and padded prompt keys, and against 64 encoder positions with a
    ragged mask and a fully masked row), grouped-query cases, batch 1 and 32,
-   fp32, each against the fp32 plain version; device time per call in a CUDA
+   fp32, each against the fp32 plain version, with the split over a cluster
+   that the wrapper picks for each shape; device time per call in a CUDA
    graph of 24 calls over cache sets that exceed the L2, beside the plain
    version, SDPA and the bound from the bytes of K and V;
 8. Parler: ``ParlerTTSEngine`` at the width and depth of indic-parler-tts
@@ -88,7 +89,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    128, zero bias and a -1e9 tail, against its fp32 plain version and the
    unpacked kernel; the four shapes it refuses; then the ablation itself
    (``f5tts_tpu_torch.scripts.ablate_attention.run``) at BQ 64 and 128: device
-   time per call of each layout, its ``mma.sync`` count (the kernel's own),
+   time per call of each layout, its count of tensor-core products
+   (m16n8k16 equivalents, the kernel's own),
    warps per SM, ``unpacked`` at the pair layouts' occupancy, the shipping
    kernel and SDPA on the same inputs. Its launches must stay 0 through
    phases 3-10.
@@ -407,7 +409,14 @@ def decode_attention_phase(dev) -> dict:
     """The decode-step attention kernel at the shapes of one Parler decode
     position (indic-parler-tts: 16 heads of 64; batch 16; 64 prompt + 1 + 438
     positions of self-attention cache, 64 encoder positions of cross-attention)."""
-    from f5tts_tpu_torch.ops.kernels.decode_attention import decode_attention, decode_attention_plain
+    from f5tts_tpu_torch.ops.kernels.decode_attention import decode_attention, decode_attention_plain, decode_split
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def split_of(b, h, n_kv, total):
+        split, span = decode_split(b, n_kv, h // n_kv, total, sms)
+        return (f"split {split} ({'one block, no cluster exchange' if split == 1 else f'a cluster of {split} blocks'}), "
+                f"{span} positions a block")
 
     def err_of(q, k, v, bias):
         out = decode_attention(q, k, v, bias)
@@ -432,8 +441,8 @@ def decode_attention_phase(dev) -> dict:
     for i, (name, dtype, b, h, n_kv, total, d, opts) in enumerate(cases):
         tol = ATTN_TOL if dtype == bf else 1e-5
         errs[name] = e = err_of(*_decode_inputs(dev, dtype, b, h, n_kv, total, d, 100 + i, **opts))
-        log(f"decode_attention {name}: {dtype} b={b} h={h} n_kv={n_kv} total={total} d={d} {opts}: "
-            f"max abs err vs fp32 plain {e:.3e} (tol {tol})")
+        log(f"decode_attention {name}: {dtype} b={b} h={h} n_kv={n_kv} total={total} d={d} {opts}, "
+            f"{split_of(b, h, n_kv, total)}: max abs err vs fp32 plain {e:.3e} (tol {tol})")
         check(np.isfinite(e) and e <= tol, f"decode_attention {name} error {e} > {tol}")
 
     # times at the two main-path shapes. Every layer has its own cache, so the
@@ -466,13 +475,15 @@ def decode_attention_phase(dev) -> dict:
         lib_err = float((library(*sets[0]).float() - decode_attention_plain(*(t.float() for t in sets[0]))).abs().max())
         nbytes = set_bytes + 2 * b * h * d * 2 + b * total * 4  # K, V; q, o; bias
         bms, by = bound_ms(4.0 * b * h * total * d, nbytes, PEAK_BF16_FLOPS)
-        log(f"decode_attention times, {name} (b {b}, h 16, total {total}, d 64, bf16; device time per call in a CUDA "
-            f"graph of 24 calls over {len(sets)} cache sets in turn): kernel {ms_kernel:.5f} ms (one set repeated: "
+        log(f"decode_attention times, {name} (b {b}, h 16, total {total}, d 64, bf16, {split_of(b, h, n_kv, total)}; "
+            f"device time per call in a CUDA graph of 24 calls over {len(sets)} cache sets in turn): kernel "
+            f"{ms_kernel:.5f} ms (one set repeated: "
             f"{ms_warm:.5f}), plain {ms_plain:.5f} ms, library (SDPA, bias as attn_mask; its max abs err vs fp32 "
             f"plain {lib_err:.3e}) {ms_lib:.5f} ms, bound {bms:.5f} ms ({by}) = {100 * bms / ms_kernel:.1f}% of the "
             f"kernel's time; one eager call with its host launch: {ms_eager:.4f} ms")
         rows[name] = {"ms": ms_kernel, "warm_ms": ms_warm, "plain_ms": ms_plain, "library_ms": ms_lib,
-                      "bound_ms": bms, "bound_by": by, "eager_call_ms": ms_eager}
+                      "bound_ms": bms, "bound_by": by, "eager_call_ms": ms_eager,
+                      "split": decode_split(b, n_kv, h // n_kv, total, sms)[0]}
         del sets
         torch.cuda.empty_cache()
     return {"name": "decode_attention", "route": "cuda", "source": "f5tts_tpu_torch/csrc/decode_attention.cu",
@@ -665,7 +676,8 @@ def ablate_attention_phase(dev) -> dict:
             f"{ {name: smem_bytes(name, bq) for name in LAYOUTS} } bytes):")
         for r in rows:
             extra = "" if r["mma"] is None else (
-                f", {r['mma']} mma.sync per call ({r['mma'] / by_name['unpacked']['mma']:.2f}x unpacked), "
+                f", {r['mma']} tensor-core products (m16n8k16 equivalents) per call "
+                f"({r['mma'] / by_name['unpacked']['mma']:.2f}x unpacked), "
                 f"{r['warps_per_sm']} warps per SM")
             log(f"  {r['name']:>22}: {r['ms']:.4f} ms = {r['ms'] / unp:.3f}x unpacked, {r['ms'] / ship:.3f}x the "
                 f"shipping kernel, bound {100 * bms / r['ms']:.1f}% of it; max abs diff vs unpacked "

@@ -2,14 +2,19 @@
 // serving kernel (flash_attention.cu: flash_wgmma, RoPE'd rows, key bias, no
 // logsumexp) and the training forward (flash_attention_train.cu:
 // fwd_lse_wgmma, which also stores the per-row logsumexp and has a variant
-// without the key bias for key_mask = None). Compile-time switches:
-//   BIAS  the producer writes each tile's key bias (0 valid, -1e30 masked,
-//         -inf past n) beside it; without it only the ragged last tile masks
-//         its keys past n, in the softmax;
+// without the key bias for key_mask = None) and the attention-layout
+// ablation's `unpacked` layout (ablate_attention.cu). Compile-time switches:
+//   BIAS  where each tile's additive key bias comes from: NO_BIAS (only the
+//         ragged last tile masks its keys past n, in the softmax), KEY_MASK
+//         (0 valid, -1e30 masked) or ROW (an fp32 row shared by every head,
+//         bias_row[key]); with a bias the producer writes it beside the tile,
+//         -inf past n, in log2 units;
 //   LSE   the epilogue also stores lse = m + log(max(l, 1e-30)) (natural log);
 //   QSMEM Q is a shared-memory wgmma operand loaded by TMA (d 64) instead of
 //         register fragments loaded from global memory;
-//   NWG   consumer warpgroups, 2 or (with QSMEM) 3.
+//   NWG   consumer warpgroups: 1 (no turns to take), 2 or (with QSMEM) 3;
+//   COUNT block() returns the tensor-core products its warpgroup issued, in
+//         m16n8k16 equivalents (4 N / 8 per wgmma m64nNk16); else 0.
 //
 // One block of 1 + NWG warpgroups per (bh, 64 NWG query rows). Warpgroup 0 is
 // the producer: one warp keeps 128-key K/V tiles in flight through TMA (4-D
@@ -46,13 +51,16 @@ constexpr float NEG_BIG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
+enum BiasSource { NO_BIAS = 0, KEY_MASK = 1, ROW = 2 };
+
 // NWG consumer warpgroups of 64 query rows (2, or 3 with Q from shared
-// memory: the consumers' registers then shrink from 240 to 160 a thread).
+// memory: the consumers' registers then shrink from 240 to 160 a thread; 1 in
+// a block launched two to an SM, 128 registers a thread at launch: 232).
 template <int D, bool QSMEM, int NWG = 2>
 struct Cfg {
     static constexpr int BQ = 64 * NWG;          // query rows per block
     static constexpr int THREADS = 128 * (NWG + 1);
-    static constexpr int CREGS = NWG == 2 ? 240 : 160;
+    static constexpr int CREGS = NWG == 1 ? 232 : (NWG == 2 ? 240 : 160);
     static constexpr int STAGES = D == 64 ? 3 : 2;
     static constexpr int PANEL = WK * 128;         // bytes of one 64-column panel of a tile
     static constexpr int TILE = PANEL * (D / 64);  // K (or V) tile bytes
@@ -64,7 +72,8 @@ struct Cfg {
 // What one block reads and writes. K and V come through TMA maps of (D, n,
 // heads, b) with 128-row boxes (kh, vh: this block's head index in each);
 // Q through a map of the same form (QSMEM) or from qrows, this head's rows
-// with row stride qsn; o is (b, n, h, D); lse (b, h, n) fp32 when LSE.
+// with row stride qsn; o is (b, n, h, D); lse (b, h, n) fp32 when LSE;
+// key_mask (b, n) for KEY_MASK, bias_row (n,) fp32 for ROW.
 struct Args {
     const CUtensorMap* kmap;
     const CUtensorMap* vmap;
@@ -77,6 +86,7 @@ struct Args {
     const uint8_t* key_mask;
     int bi, head, h, n;
     float scale;
+    const float* bias_row;
 };
 
 // s[64]: scores of rows (g, g+8) of this warp x 128 keys, columns 8i + 2tq + {0,1}.
@@ -115,10 +125,10 @@ __device__ __forceinline__ size_t out_row(int b, int t, int head, int n, int h, 
 
 // The block body; smem_raw is the kernel's dynamic shared memory (Cfg::SMEM
 // bytes), launched as Cfg::THREADS threads on a grid of (ceil(n / Cfg::BQ), b * h).
-template <int D, bool BIAS, bool LSE, bool QSMEM, int NWG = 2>
-__device__ __forceinline__ void block(unsigned char* smem_raw, const Args& a) {
+template <int D, int BIAS, bool LSE, bool QSMEM, int NWG = 2, bool COUNT = false>
+__device__ __forceinline__ unsigned block(unsigned char* smem_raw, const Args& a) {
     static_assert(!QSMEM || D == 64, "Q from shared memory is built for d 64");
-    static_assert(NWG == 2 || (NWG == 3 && QSMEM), "3 consumer warpgroups fit with Q in shared memory only");
+    static_assert(NWG == 1 || NWG == 2 || (NWG == 3 && QSMEM), "3 consumer warpgroups fit with Q in shared memory only");
     using C = Cfg<D, QSMEM, NWG>;
     unsigned char* base = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
     unsigned char* qs = base + C::STAGES * C::STAGE;  // QSMEM: the block's Q rows, 1024-aligned
@@ -155,8 +165,12 @@ __device__ __forceinline__ void block(unsigned char* smem_raw, const Args& a) {
 #pragma unroll
                     for (int e = 0; e < WK / 32; ++e) {
                         const int col = tid * (WK / 32) + e, key = j * WK + col;
-                        const float bv = key >= n ? -INFINITY
-                                                  : (a.key_mask != nullptr && !a.key_mask[(size_t)bi * n + key] ? NEG_BIG : 0.0f);
+                        float bv;
+                        if constexpr (BIAS == ROW)
+                            bv = key >= n ? -INFINITY : a.bias_row[key];
+                        else
+                            bv = key >= n ? -INFINITY
+                                          : (a.key_mask != nullptr && !a.key_mask[(size_t)bi * n + key] ? NEG_BIG : 0.0f);
                         bias[stage * WK + col] = bv * LOG2E;
                     }
                 }
@@ -210,7 +224,10 @@ __device__ __forceinline__ void block(unsigned char* smem_raw, const Args& a) {
         // the warpgroups take turns issuing, 0, 1, (2,) 0, ...: each waits on
         // its named barrier 1 + wg, which the one before it arrives at
         const int my_bar = 1 + wg, next_bar = 1 + (wg + 1) % NWG;
-        if (wg == NWG - 1) hp::named_arrive(1, 256);
+        if constexpr (NWG > 1)
+            if (wg == NWG - 1) hp::named_arrive(1, 256);
+        unsigned products = 0;  // COUNT: m16n8k16 equivalents this warpgroup issued
+        constexpr unsigned S_PRODUCTS = (D / 16) * (4 * WK / 8), PV_PRODUCTS = (WK / 16) * (4 * D / 8);
 
         auto scores = [&](const unsigned char* kt) {
             if constexpr (QSMEM)
@@ -310,12 +327,13 @@ __device__ __forceinline__ void block(unsigned char* smem_raw, const Args& a) {
 
         // tile 0: S alone
         hp::mbar_wait(&full[0], 0);
-        hp::named_sync(my_bar, 256);
+        if constexpr (NWG > 1) hp::named_sync(my_bar, 256);
         hp::fence_regs(s);
         hp::wgmma_fence();
         scores(base);
         hp::wgmma_commit();
-        hp::named_arrive(next_bar, 256);
+        if constexpr (COUNT) products += S_PRODUCTS;
+        if constexpr (NWG > 1) hp::named_arrive(next_bar, 256);
         hp::wgmma_wait<0>();
         hp::fence_regs(s);
         {
@@ -328,7 +346,7 @@ __device__ __forceinline__ void block(unsigned char* smem_raw, const Args& a) {
         for (int j = 1; j < ntiles; ++j) {
             const int stage = j % C::STAGES, prev = (j - 1) % C::STAGES;
             hp::mbar_wait(&full[stage], (j / C::STAGES) & 1);
-            hp::named_sync(my_bar, 256);
+            if constexpr (NWG > 1) hp::named_sync(my_bar, 256);
             hp::fence_regs(s);
             hp::fence_regs(acc);
             hp::fence_regs(p);
@@ -337,7 +355,8 @@ __device__ __forceinline__ void block(unsigned char* smem_raw, const Args& a) {
             hp::wgmma_commit();
             issue_pv<D>(acc, p, base + prev * C::STAGE + C::TILE);
             hp::wgmma_commit();
-            hp::named_arrive(next_bar, 256);
+            if constexpr (COUNT) products += S_PRODUCTS + PV_PRODUCTS;
+            if constexpr (NWG > 1) hp::named_arrive(next_bar, 256);
             hp::wgmma_wait<1>();
             hp::fence_regs(s);
             float a0, a1;
@@ -350,13 +369,15 @@ __device__ __forceinline__ void block(unsigned char* smem_raw, const Args& a) {
         }
         // the last tile's PV
         const int last = (ntiles - 1) % C::STAGES;
-        hp::named_sync(my_bar, 256);
+        if constexpr (NWG > 1) hp::named_sync(my_bar, 256);
         hp::fence_regs(acc);
         hp::fence_regs(p);
         hp::wgmma_fence();
         issue_pv<D>(acc, p, base + last * C::STAGE + C::TILE);
         hp::wgmma_commit();
-        if (wg != NWG - 1) hp::named_arrive(next_bar, 256);
+        if constexpr (COUNT) products += PV_PRODUCTS;
+        if constexpr (NWG > 1)
+            if (wg != NWG - 1) hp::named_arrive(next_bar, 256);
         hp::wgmma_wait<0>();
         hp::fence_regs(acc);
         hp::fence_regs(p);
@@ -384,7 +405,9 @@ __device__ __forceinline__ void block(unsigned char* smem_raw, const Args& a) {
                 if (r1 < n) a.lse[row + r1] = m1 * LN2 + logf(den1);
             }
         }
+        return products;
     }
+    return 0;
 }
 
 // A (D, n, heads, b) map of `box_rows`-row boxes over a bf16 tensor with

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks of the port's redesigned kernels: wgmma
-// with B from a shared-memory descriptor and A from registers (or, m64n128,
-// from a descriptor too), its
-// fence / commit / wait, mbarriers, TMA tile loads, named barriers,
-// setmaxnreg, and the host-side TMA descriptor (cuTensorMapEncodeTiled,
-// reached through cudaGetDriverEntryPoint, so no -lcuda is needed).
+// with B from a shared-memory descriptor and A from registers (or from a
+// descriptor too), its fence / commit / wait, the async-proxy fence,
+// mbarriers, TMA tile loads and 1-D bulk copies, thread-block cluster
+// barriers and distributed shared-memory stores, named barriers, setmaxnreg,
+// and the host-side TMA descriptor (cuTensorMapEncodeTiled, reached through
+// cudaGetDriverEntryPoint, so no -lcuda is needed).
 //
 // Shared-memory tiles are rows of 64 bf16 (128 bytes) in TMA's 128-byte
 // swizzle: the 16-byte chunk c of row r sits at chunk c ^ (r % 8), each tile
@@ -106,6 +107,22 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float* d, uint64_t desc_a, u
 }
 
 
+// d (64 x 64 fp32, this thread's 32) (+)= A (64 x 16 bf16, K-major descriptor) . B (16 x 64 bf16, descriptor)
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float* d, uint64_t desc_a, uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, %35;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+}
+
+// Orders this thread's earlier generic-proxy writes to shared memory before
+// later async-proxy reads of it (a wgmma operand written with st.shared).
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
 // --- registers, barriers ----------------------------------------------------
 
 template <int R>
@@ -156,6 +173,42 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
         ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
         "r"(c3)
         : "memory");
+}
+
+// `bytes` (a multiple of 16) of contiguous global memory at `src` into shared
+// memory at `dst` (both 16-byte aligned): a 1-D bulk copy (no tensor map),
+// completion counted on `bar` in bytes.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+                 ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+                 : "memory");
+}
+
+// --- thread-block clusters ----------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+    uint32_t r;
+    asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+    return r;
+}
+// Every thread of every block of the cluster: writes to shared memory before
+// it (the cluster's blocks' too) are visible to the reads after it.
+__device__ __forceinline__ void cluster_sync() {
+    asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// The same in two halves: arrive early, wait later (no ordering of memory
+// between them); after the wait every block of the cluster has started, so
+// its shared memory may be written.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory"); }
+// Stores x at the place of `p` (an address in this block's shared memory) in
+// the shared memory of block `rank` of the cluster.
+__device__ __forceinline__ void st_cluster(float* p, uint32_t rank, float x) {
+    uint32_t remote;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_u32(p)), "r"(rank));
+    asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(remote), "f"(x) : "memory");
 }
 
 // --- shared-memory fragments -------------------------------------------------

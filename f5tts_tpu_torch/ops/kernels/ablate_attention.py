@@ -8,6 +8,10 @@ N)`` fp32 (added to every row's scores, scale ``64**-0.5``); they differ only in
 the products they issue. Layouts after ``unpacked`` take heads in pairs
 ``(2i, 2i + 1)``. The kernel's source notes its bound and design; ``PERF.md``
 has its times on the card. Nothing on a serving or training path calls it.
+
+Products are counted in m16n8k16 equivalents (16 x 8 x 16 multiply-adds, 4096
+flops): the kernel issues ``wgmma`` m64nNk16, each of which is ``4 N / 8`` of
+them, so the counts keep the unit of ``mma_per_call``.
 """
 
 from __future__ import annotations
@@ -20,20 +24,28 @@ from f5tts_tpu_torch.ops.kernels import _build
 
 LAYOUTS = ("unpacked", "packed_blockdiag", "packed_sep_o", "sumdiff_blockdiag", "sumdiff_dense_cross")
 PAIR_LAYOUTS = LAYOUTS[1:]
-BLOCK_QS = (64, 128)  # query rows per block: 4 or 8 warps of 16 rows
+BLOCK_QS = (64, 128)  # query rows per block: 1 or 2 consumer warpgroups of 64 rows
 HEAD_DIM = 64
 MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
+N_MULTIPLE = 128  # N is a multiple of this: unpacked's key tile (the serving block's)
 _KEY_TILE = 64
-# mma.sync m16n8k16 a warp issues per 64-key tile (16 query rows, one head or a pair)
+# m16n8k16 equivalents a warp's 16 query rows take per 64-key tile (of one head, or of a pair)
 _MMA_PER_TILE = {"unpacked": 64, "packed_blockdiag": 256, "packed_sep_o": 192, "sumdiff_blockdiag": 256,
                  "sumdiff_dense_cross": 256}
 
 
 def mma_per_call(layout: str, bh: int, n: int) -> int:
-    """The ``mma.sync`` m16n8k16 instructions the kernel issues for one call:
-    ``unpacked`` issues the true work, 4 BH N^2 64 flops / 4096 flops each."""
+    """The tensor-core products (m16n8k16 equivalents) the kernel issues for
+    one call: ``unpacked`` issues the true work, 4 BH N^2 64 flops / 4096
+    flops each."""
     warps = bh // (1 if layout == "unpacked" else 2) * (n // 16)
     return warps * (n // _KEY_TILE) * _MMA_PER_TILE[layout]
+
+
+def m16n8k16_equivalents(n_cols: int) -> int:
+    """m16n8k16 products in one ``wgmma`` m64nNk16 of N = ``n_cols`` (the
+    kernel's unit of count): 4 warps' 16 rows x N / 8."""
+    return 4 * n_cols // 8
 
 
 def _softmax_rows(s):
@@ -162,8 +174,8 @@ def _check(layout, bias, q, k, v, bq, mma_count, min_smem):
         raise TypeError(f"ablate_attention takes bf16 q/k/v, got {q.dtype}, {k.dtype}, {v.dtype}")
     if d != HEAD_DIM:
         raise ValueError(f"ablate_attention takes head dim {HEAD_DIM} only, got {d}")
-    if n == 0 or n % bq:
-        raise ValueError(f"N = {n} must be a positive multiple of bq = {bq}")
+    if n == 0 or n % bq or n % N_MULTIPLE:
+        raise ValueError(f"N = {n} must be a positive multiple of bq = {bq} and of {N_MULTIPLE} (the key tile)")
     if layout in PAIR_LAYOUTS and bh % 2:
         raise ValueError(f"{layout} takes heads in pairs: BH = {bh} must be even")
     if not 0 < bh <= 65535:
@@ -183,9 +195,10 @@ def _check(layout, bias, q, k, v, bq, mma_count, min_smem):
 def ablate_attention(layout: str, bias, q, k, v, bq: int = 64, mma_count=None, min_smem: int = 0):
     """The attention core of ``q, k, v (BH, N, 64)`` in ``layout``. CPU tensors
     take the plain version; CUDA tensors launch the kernel or raise (bf16 only,
-    ``bq`` 64 or 128 query rows per block, N a multiple of ``bq``, BH even for
-    the pair layouts). ``mma_count``, a ``(1,)`` int64 CUDA tensor, gets the
-    ``mma.sync`` the launch issues added to it. ``min_smem`` reserves at least
+    ``bq`` 64 or 128 query rows per block, N a multiple of ``bq`` and of 128,
+    BH even for the pair layouts). ``mma_count``, a ``(1,)`` int64 CUDA
+    tensor, gets the tensor-core products the launch issues added to it, in
+    m16n8k16 equivalents. ``min_smem`` reserves at least
     that many bytes of shared memory per block, so that fewer blocks share an
     SM (an occupancy control for measurements). No backward: a CUDA input that
     requires grad (with grad enabled) raises."""

@@ -11,6 +11,10 @@ source notes its bound and design; ``PERF.md`` has its times on the card.
 
 A row whose bias is -1e9 everywhere gets uniform weights over the ``total``
 positions it was given, in the kernel and in the plain version alike.
+
+The kernel splits the positions of each (batch row, KV head) across a
+thread-block cluster of ``split`` blocks; ``decode_split`` picks it from the
+shape, and the launch needs a card with clusters (``sm_90a``).
 """
 
 from __future__ import annotations
@@ -23,6 +27,33 @@ from f5tts_tpu_torch.ops.kernels import _build
 
 _HEAD_DIMS = (32, 64, 128)
 _DTYPES = (torch.bfloat16, torch.float32)
+MAX_CLUSTER = 8  # blocks per cluster, the portable most
+MIN_SPAN = 48  # positions a block keeps at least: below, the cluster's exchange costs more than the split gains
+BLOCKS_PER_SM = 2  # the grid the split aims for
+H100_SMS = 132
+
+
+def group_tile(group: int) -> int:
+    """Group members one block serves (the kernel's GT): 1, 2, else tiles of 4."""
+    return 1 if group == 1 else 2 if group == 2 else 4
+
+
+def decode_split(b: int, n_kv: int, group: int, total: int, sms: int = H100_SMS) -> tuple[int, int]:
+    """``(split, span)``: blocks per cluster and positions per block for one
+    launch. The split doubles from 1 while the grid has fewer than
+    ``BLOCKS_PER_SM`` blocks per SM, up to ``MAX_CLUSTER``, as long as every
+    span keeps at least ``MIN_SPAN`` positions; then it shrinks to
+    ``ceil(total / span)`` so that no block is left without a position. Block
+    ``r`` owns positions ``[r * span, min(total, (r + 1) * span))``. On an
+    H100 this gives Parler's self-attention (16 heads, 503 positions) a split
+    of 2 at b 16, 1 at b 32 and 8 at b 1, and its 64-position
+    cross-attention none."""
+    units = b * n_kv * -(-group // group_tile(group))
+    split = 1
+    while split < MAX_CLUSTER and units * split < BLOCKS_PER_SM * sms and -(-total // (2 * split)) >= MIN_SPAN:
+        split *= 2
+    span = -(-total // split)
+    return -(-total // span), span
 
 
 def decode_attention_plain(q, k_cache, v_cache, bias):
@@ -44,9 +75,9 @@ def _lib():
     if not getattr(lib, "_f5_typed", False):
         p = ctypes.c_void_p
         i = ctypes.c_int
-        lib.f5_decode_attention.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+        lib.f5_decode_attention.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
         lib.f5_decode_attention.restype = i
-        lib.f5_decode_attention_smem.argtypes = [i, i, i]
+        lib.f5_decode_attention_smem.argtypes = [i, i, i, i, i, i, i]
         lib.f5_decode_attention_smem.restype = ctypes.c_longlong
         lib.f5_decode_attention_max_smem.argtypes = []
         lib.f5_decode_attention_max_smem.restype = i
@@ -57,7 +88,8 @@ def _lib():
 
 
 def _check(lib, q, k_cache, v_cache, bias):
-    """Shapes, dtypes and devices (everything a call signature fixes)."""
+    """Shapes, dtypes and devices (everything a call signature fixes);
+    returns the launch's split."""
     if q.ndim != 4 or q.shape[2] != 1:
         raise ValueError(f"q must be (b, h, 1, d), got {tuple(q.shape)}")
     b, h, _, d = q.shape
@@ -79,13 +111,17 @@ def _check(lib, q, k_cache, v_cache, bias):
     if not (k_cache.device == v_cache.device == bias.device == q.device):
         raise ValueError(f"q, k_cache, v_cache and bias must be on one device, got {q.device}, {k_cache.device}, "
                          f"{v_cache.device}, {bias.device}")
-    need, most = lib.f5_decode_attention_smem(h // n_kv, total, d), lib.f5_decode_attention_max_smem()
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    split, span = decode_split(b, n_kv, h // n_kv, total, sms)
+    is_bf16 = int(q.dtype == torch.bfloat16)
+    need, most = lib.f5_decode_attention_smem(b, h, n_kv, total, d, is_bf16, split), lib.f5_decode_attention_max_smem()
     if need > most:
-        raise ValueError(f"total = {total} needs {need} bytes of shared memory for the scores, over the "
-                         f"block's {most}")
+        raise ValueError(f"total = {total} needs {need} bytes of shared memory for the scores of its {span}-position "
+                         f"spans, over the block's {most}")
+    return split
 
 
-_checked: set = set()  # call signatures that passed _check (the decode loop repeats a few, many thousand times)
+_checked: dict = {}  # call signature -> split, for signatures that passed _check (the decode loop repeats a few)
 
 
 def decode_attention(q, k_cache, v_cache, bias):
@@ -106,9 +142,9 @@ def decode_attention(q, k_cache, v_cache, bias):
     lib = _lib()
     signature = (q.shape, k_cache.shape, v_cache.shape, bias.shape, q.dtype, k_cache.dtype, v_cache.dtype,
                  bias.dtype, dev, k_cache.device, v_cache.device, bias.device)
-    if signature not in _checked:
-        _check(lib, q, k_cache, v_cache, bias)
-        _checked.add(signature)
+    split = _checked.get(signature)
+    if split is None:
+        split = _checked[signature] = _check(lib, q, k_cache, v_cache, bias)
     ptrs = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), bias.data_ptr())
     if (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3]) & 15 or not (
             q.is_contiguous() and k_cache.is_contiguous() and v_cache.is_contiguous() and bias.is_contiguous()):
@@ -118,7 +154,7 @@ def decode_attention(q, k_cache, v_cache, bias):
 
     def launch():
         return lib.f5_decode_attention(*ptrs, out.data_ptr(), b, h, k_cache.shape[1], k_cache.shape[2], d,
-                                       int(q.dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream)
+                                       int(q.dtype == torch.bfloat16), split, torch.cuda.current_stream(dev).cuda_stream)
 
     if dev.index is None or dev.index == torch.cuda.current_device():
         err = launch()

@@ -22,10 +22,11 @@ clock, which measures nothing of the card.
 
 ``main`` reads the JAX script's environment names with its defaults (``AB_BH``
 256: fused CFG at batch 8 is 16 rows x 16 heads; ``AB_N`` 1024; ``AB_CHAIN``
-50; ``AB_ITERS`` 3) except ``AB_BQ``, whose default is 64, not 512: 512 query
-rows per block would be 32 warps of 16 rows, at most 64 registers a thread,
-and a pair layout's warp holds about 200 live values a thread (scores,
-accumulators and query fragments), so they would spill.
+50; ``AB_ITERS`` 3) except ``AB_BQ``, whose default is 64, not 512: a block
+holds 1 or 2 consumer warpgroups of 64 query rows (``AB_BQ`` 64 or 128) beside
+its producer warpgroup, because a pair layout's consumer thread holds about
+200 live values (scores, output accumulators, P fragments) of the 232-240
+registers it can have.
 """
 
 from __future__ import annotations
@@ -96,10 +97,12 @@ def run(bh: int, n: int, bq: int, chain: int, iters: int, device=None, seed: int
     with ``packed_blockdiag``'s shared memory (so that as few warps share an
     SM as in that layout), the shipping kernel and SDPA: ``name``, ``ms`` per
     call, ``max_abs_diff`` against ``unpacked``'s output, ``mma``, the
-    ``mma.sync`` m16n8k16 a kernel row issues per call (on the card, counted
-    by the kernel's warps and checked against ``mma_per_call``), and
-    ``warps_per_sm`` of a kernel row on the card (CUDA's occupancy
-    calculator); None where they do not apply."""
+    tensor-core products (m16n8k16 equivalents) a kernel row issues per call
+    (on the card, counted by the kernel's warpgroups and checked against
+    ``mma_per_call``), and ``warps_per_sm`` of a kernel row on the card: the
+    query-row warps (``bq / 16`` a block; the producer warpgroup is not
+    counted) times CUDA's occupancy calculator's blocks per SM; None where
+    they do not apply."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     q, k, v = (torch.as_tensor(rng.standard_normal((bh, n, HEAD_DIM)), dtype=torch.float32).to(dev, torch.bfloat16)
@@ -136,7 +139,8 @@ def run(bh: int, n: int, bq: int, chain: int, iters: int, device=None, seed: int
                     counted = torch.zeros(1, dtype=torch.int64, device=dev)
                     ablate_attention(layout, bias, q, k, v, bq, mma_count=counted, min_smem=smem)
                     if int(counted) != mma:
-                        raise AssertionError(f"{name}: the kernel issued {int(counted)} mma.sync, want {mma}")
+                        raise AssertionError(f"{name}: the kernel issued {int(counted)} tensor-core products "
+                                             f"(m16n8k16 equivalents), want {mma}")
                     warps = blocks_per_sm(layout, bq, smem) * bq // 16
             rows.append({"name": name, "ms": ms, "max_abs_diff": err, "mma": mma, "warps_per_sm": warps})
     return rows
@@ -159,7 +163,7 @@ def main(argv=None) -> None:
     print(f"BH {bh}, N {n}, D {HEAD_DIM}, bf16, BQ {bq}; {clock}", flush=True)
     rows = run(bh, n, bq, chain, iters, dev)
     for r in rows:
-        mma = "" if r["mma"] is None else f", {r['mma']} mma.sync per call"
+        mma = "" if r["mma"] is None else f", {r['mma']} tensor-core products (m16n8k16 equivalents) per call"
         mma += "" if r["warps_per_sm"] is None else f", {r['warps_per_sm']} warps per SM"
         print(f"{r['name']:>22}: {r['ms']:7.4f} ms/call  (max|Δ| vs unpacked {r['max_abs_diff']:.4f}){mma}")
     base = next(r["ms"] for r in rows if r["name"] == SHIPPING)

@@ -298,12 +298,15 @@ def _decode_case(dev, dtype, b, h, n_kv, total, d, dead_row=None):
 
 
 # bf16 kernel vs fp32 plain on the same bf16 inputs within 2e-2 (p and o are
-# rounded to bf16); fp32 kernel within 1e-5 (summation order only)
+# rounded to bf16); fp32 kernel within 1e-5 (summation order only). The cases
+# cover the split over a cluster: b 1 (a cluster of 8), totals that the split
+# does not divide, total 1 (no split), GQA groups 3, 4 and 8, d 32 / 64 / 128,
+# dead rows, and spans longer than the K/V rings (their slots refilled).
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-5)])
 @pytest.mark.parametrize("b,h,n_kv,total,d,dead_row", [
     (3, 4, 4, 77, 64, None), (2, 8, 2, 200, 64, 1), (2, 6, 2, 33, 32, None), (1, 16, 2, 300, 128, None),
-    (2, 4, 4, 1, 64, None)])
+    (2, 4, 4, 1, 64, None), (1, 16, 16, 503, 64, None), (1, 8, 1, 1000, 32, 0), (2, 16, 2, 4099, 128, 1)])
 def test_decode_attention_kernel_matches_plain(dev, dtype, tol, b, h, n_kv, total, d, dead_row):
     q, k, v, bias = _decode_case(dev, dtype, b, h, n_kv, total, d, dead_row)
     before = t_dec.decode_attention.launches
@@ -328,9 +331,9 @@ def test_decode_attention_wrapper_raises_on_what_the_kernel_does_not_take(dev):
         t_dec.decode_attention(q, k.transpose(2, 3).contiguous().transpose(2, 3), v, bias)
     with pytest.raises(ValueError, match="fp32"):
         t_dec.decode_attention(q, k, v, bias.bfloat16())
-    with pytest.raises(ValueError, match="shared memory"):
-        big = torch.zeros((1, 2, 70000, 64), device=dev, dtype=torch.bfloat16)
-        t_dec.decode_attention(q[:1], big, big, torch.zeros((1, 70000), device=dev))
+    with pytest.raises(ValueError, match="shared memory"):  # 8 blocks of 37 500 positions: their scores do not fit
+        big = torch.zeros((1, 2, 300000, 64), device=dev, dtype=torch.bfloat16)
+        t_dec.decode_attention(q[:1], big, big, torch.zeros((1, 300000), device=dev))
     with pytest.raises(RuntimeError, match="no backward"):
         t_dec.decode_attention(q.clone().requires_grad_(True), k, v, bias)
     with torch.no_grad():
@@ -450,7 +453,8 @@ def _ablate_case(dev, bh, n, tail_masked):
 
 
 # each layout against its plain version (fp32 on the same bf16 inputs) and against the unpacked kernel
-# (the JAX script's 0.05); the kernel's own count of the mma.sync it issued against the layout's design
+# (the JAX script's 0.05); the kernel's own count of the tensor-core products it issued (m16n8k16
+# equivalents) against the layout's design
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", t_abl.LAYOUTS)
 @pytest.mark.parametrize("n", [256, 1024])
@@ -479,6 +483,9 @@ def test_ablate_attention_wrapper_raises_on_what_the_kernel_does_not_take(dev):
         t_abl.ablate_attention("packed_blockdiag", bias, q[:3].contiguous(), k[:3].contiguous(), v[:3].contiguous())
     with pytest.raises(ValueError, match="multiple of bq"):
         t_abl.ablate_attention("unpacked", bias[..., :96].contiguous(), *(t[:, :96].contiguous() for t in (q, k, v)))
+    with pytest.raises(ValueError, match="key tile"):  # a multiple of bq 64, but not of the 128-key tile
+        wide = [torch.cat([t, t[:, :64]], 1) for t in (q, k, v)]
+        t_abl.ablate_attention("unpacked", torch.zeros((1, 1, 192), device=dev), *wide)
     with pytest.raises(ValueError, match="head dim"):
         t_abl.ablate_attention("unpacked", bias, *(t[..., :32].contiguous() for t in (q, k, v)))
     with pytest.raises(TypeError):
