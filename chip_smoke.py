@@ -66,15 +66,21 @@ Phases, each of which fails the run (non-zero exit) on any error:
    0; a profiler breakdown of one bench call with the busy/idle share; and at
    a small geometry the step logits of bf16 + kernel against fp32 + plain,
    teacher-forced;
-9. quant_matmul (with phase 2): the fused quantize + int8 tensor-core matmul
+9. quant_matmul (with phase 2): the fused quantize + int8 ``wgmma`` matmul
    at the shapes the int8 engine gives it at the bench geometry (16 x 1024
    rows of bf16 against the q/k/v/out, feed-forward in and feed-forward out
-   weights of F5-TTS Base), a ragged fp32 shape, shapes that are no multiple
-   of its tiles, a zero row and a row of 1e-7 under both floor conventions:
-   every result bit-equal to the plain version; times beside the plain
-   version, PyTorch's quantize + ``torch._int_mm`` + rescale, the bf16
-   ``torch.matmul`` of the same shape (what int8 has to beat) and the bound;
-   and the rate of the ``mma.sync`` s8 instruction alone;
+   weights of F5-TTS Base), a lone 1024-bucket request (M 2048), the smallest
+   bucket (M 512), K 4096 and 5504 (the streamed path), a ragged fp32 shape,
+   shapes that are no multiple of its tiles, each with and without the bias,
+   a zero row and a row of 1e-7 under both floor conventions: every result
+   bit-equal to the plain version, the fused bias bit-equal to the separate
+   add; every plan the kernel is built for at the serving shapes and M 2048,
+   checked and timed; device time per call in a CUDA graph over input sets
+   larger than the L2 beside ``torch._int_mm`` on pre-quantized operands and
+   the bf16 ``torch.matmul`` of the same shape (yardsticks only) and the
+   bound; eager times beside the plain version and PyTorch's quantize +
+   ``torch._int_mm`` + rescale; the rates of the ``mma.sync`` and ``wgmma``
+   s8 instructions alone;
 10. int8 engine (after phase 4): ``TTSEngine(EngineConfig(quantization="int8"))``
    at F5-TTS Base + Vocos: one request with exact launch counts (quant_matmul
    6 x 22, attention 22, its RoPE pre-pass 22, conv-pos 1 per DiT forward), one DiT forward and one
@@ -83,7 +89,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    solve, ``synthesize_streaming`` against ``synthesize``'s wave, then the
    bench geometry at int8 beside the bf16 figure of the same run, with a
    profile whose library-GEMM launches must drop by exactly the 2640 that
-   moved to quant_matmul;
+   moved to quant_matmul, whose elementwise launches must drop by at least
+   the 2640 bias adds fused into it, and whose quant_matmul pre-pass runs
+   once per feed-forward out linear (K 2048, the streamed path);
 11. attention-layout ablation (with phase 2): the kernel of the five layouts
    of ``scripts/ablate_attention.py`` at BH 256, N 1024, D 64, bf16, BQ 64 and
    128, zero bias and a -1e9 tail, against its fp32 plain version and the
@@ -503,21 +511,48 @@ def _quant_inputs(dev, dtype, m, k, n, seed):
     return x.to(dev, dtype), w_q.to(dev), s_w.to(dev)
 
 
+def _quant_sets(dev, m, k, n, seed, at_least_bytes=120e6, most=32):
+    """Input sets (x, w_q, s_w, w_qt, b) for timing, enough that a graph that
+    walks them reads more than the 50 MB L2 between two visits of one set."""
+    from f5tts_tpu_torch.ops.kernels.quant_matmul import kernel_layout
+
+    per_set = m * k * 2 + k * n * 2 + m * n * 2
+    sets = []
+    for i in range(min(most, max(3, int(-(-at_least_bytes // per_set))))):
+        x, w_q, s_w = _quant_inputs(dev, torch.bfloat16, m, k, n, seed + i)
+        b = torch.randn((n,), generator=torch.Generator().manual_seed(seed + i)).to(dev, torch.bfloat16)
+        sets.append((x, w_q, s_w, kernel_layout(w_q), b))
+    return sets
+
+
 def quant_matmul_phase(dev) -> dict:
     """The fused W8A8 matmul at the shapes the int8 engine gives it at the
     bench geometry (16 x 1024 rows; q/k/v/out, ff in, ff out of F5-TTS Base),
-    held bit-equal to its plain version: the integer product is exact and
-    every fp32 step is one correctly rounded operation in a fixed order."""
-    from f5tts_tpu_torch.ops.kernels.quant_matmul import (kernel_layout, mma_rate_probe, quant_matmul,
-                                                          quant_matmul_plain)
+    at a lone 1024-bucket request (M 2048) and the smallest bucket (M 512),
+    past the fused path's K (4096, 5504: the streamed path), with and
+    without the bias, held bit-equal to its plain version: the integer
+    product is exact and every fp32 step is one correctly rounded operation in
+    a fixed order. Then every plan the kernel is built for at those shapes,
+    device time per call in a CUDA graph over input sets larger than the L2,
+    beside ``torch._int_mm`` on pre-quantized operands and the bf16
+    ``torch.matmul`` (yardsticks only), and the rates of the two int8
+    tensor-core instructions alone."""
+    from f5tts_tpu_torch.ops.kernels.quant_matmul import (fits, kernel_layout, kernel_smem_bytes, launch_plan,
+                                                          make_plan, mma_rate_probe, plan, quant_matmul,
+                                                          quant_matmul_plain, smem_bytes, wgmma_rate_probe)
 
     bf, f32 = torch.bfloat16, torch.float32
     kernel_floor, linear_floor = dict(amax_floor=1e-6, scale_floor=0.0), dict(amax_floor=0.0, scale_floor=1e-8)
+    for streamed in (False, True):
+        for k in (80, 1024, 1152, 1168, 2048, 5504):
+            want = smem_bytes(streamed, k) if fits(streamed, k) else 0
+            check(kernel_smem_bytes(streamed, k) == want,
+                  f"quant_matmul shared memory: the kernel and the plan disagree at {streamed, k}")
 
-    def differing(x, w_q, s_w, **floors):
-        out = quant_matmul(x, w_q, s_w, w_qt=kernel_layout(w_q), **floors)
+    def differing(x, w_q, s_w, b=None, **floors):
+        out = quant_matmul(x, w_q, s_w, w_qt=kernel_layout(w_q), b=b, **floors)
         torch.cuda.synchronize()
-        ref = quant_matmul_plain(x, w_q, s_w, **floors)
+        ref = quant_matmul_plain(x, w_q, s_w, b=b, **floors)
         check(out.shape == ref.shape and out.dtype == x.dtype, "quant_matmul output shape/dtype")
         check(bool(torch.isfinite(out.float()).all()), "quant_matmul output not finite")
         return int((out != ref).sum()), float((out.float() - ref.float()).abs().max())
@@ -526,14 +561,29 @@ def quant_matmul_phase(dev) -> dict:
         ("q/k/v/out", bf, 16384, 1024, 1024, linear_floor), ("ff in", bf, 16384, 1024, 2048, linear_floor),
         ("ff out", bf, 16384, 2048, 1024, linear_floor), ("ragged fp32", f32, 1000, 1024, 2048, kernel_floor),
         ("K, N not multiples of the tile", bf, 77, 80, 48, kernel_floor),
-        ("fp32, 32 rows per block", f32, 300, 4096, 64, linear_floor))
+        ("fp32, K 4096 (streamed)", f32, 300, 4096, 64, linear_floor),
+        ("M 2048 (a lone 1024-bucket request)", bf, 2048, 1024, 1024, linear_floor),
+        ("M 512 (the smallest bucket)", bf, 512, 1024, 2048, linear_floor),
+        ("K 4096 (streamed)", bf, 4096, 4096, 1024, linear_floor),
+        ("K 5504, ragged M, N 208 (streamed)", f32, 1001, 5504, 208, kernel_floor))
     worst = 0.0
     for i, (name, dtype, m, k, n, floors) in enumerate(cases):
-        bad, err = differing(*_quant_inputs(dev, dtype, m, k, n, 300 + i), **floors)
-        worst = max(worst, err)
-        log(f"quant_matmul {name}: {dtype} ({m}, {k}) x ({k}, {n}), floors {floors}: {bad} of {m * n} elements differ "
-            f"from the plain version, max abs difference {err:.3e} (must be bit-equal)")
-        check(bad == 0, f"quant_matmul {name}: {bad} elements differ from the plain version")
+        x, w_q, s_w = _quant_inputs(dev, dtype, m, k, n, 300 + i)
+        b = torch.randn((n,), generator=torch.Generator().manual_seed(400 + i)).to(dev, dtype)
+        p = plan(m, k, n)
+        for bias in (None, b):
+            bad, err = differing(x, w_q, s_w, bias, **floors)
+            worst = max(worst, err)
+            log(f"quant_matmul {name}: {dtype} ({m}, {k}) x ({k}, {n}), floors {floors}, "
+                f"{'with' if bias is not None else 'no'} bias, plan {'streamed' if p.streamed else 'fused'} "
+                f"split {p.split} ({p.blocks} blocks): {bad} of {m * n} elements differ from the plain "
+                f"version, max abs difference {err:.3e} (must be bit-equal)")
+            check(bad == 0, f"quant_matmul {name}: {bad} elements differ from the plain version")
+        w_qt = kernel_layout(w_q)
+        fused = quant_matmul(x, w_q, s_w, w_qt=w_qt, b=b, **floors)
+        check(torch.equal(fused, quant_matmul(x, w_q, s_w, w_qt=w_qt, **floors) + b),
+              f"quant_matmul {name}: the fused bias differs from the separate add")
+        del x, w_q, s_w, w_qt, b, fused
     # the two floors: a zero row and a row of 1e-7 (abs-max under 1.27e-6, where the conventions part)
     for dtype in (bf, f32):
         x, w_q, s_w = _quant_inputs(dev, dtype, 64, 1024, 1024, 310)
@@ -549,9 +599,11 @@ def quant_matmul_phase(dev) -> dict:
         a, b = outs["abs-max 1e-6"], outs["scale 1e-8"]
         check(torch.equal(a[3:], b[3:]) and not torch.equal(a[2], b[2]),
               "the two floors must agree on ordinary rows and differ on the 1e-7 row")
+    torch.cuda.empty_cache()
 
-    # the rate of the mma.sync s8 instruction alone (register operands, no memory): what the
-    # kernel's product phase can reach at most, with the kernel's 8 warps per SM and with 32
+    # the rates of the int8 tensor-core instructions alone (no memory traffic): mma.sync m16n8k32
+    # (register operands; 8 and 32 warps per SM) and the wgmma m64n128k32 the kernel issues
+    # (shared-memory operands; 3 warpgroups per SM)
     mma_rate = {}
     for warps_per_sm in (8, 32):
         blocks, iters = 132 * warps_per_sm // 8, 4096
@@ -560,46 +612,81 @@ def quant_matmul_phase(dev) -> dict:
         log(f"mma.sync m16n8k32 s8 rate, {warps_per_sm} warps per SM, 8 independent accumulators per warp: "
             f"{mma_rate[warps_per_sm]:.1f} TOP/s ({100 * mma_rate[warps_per_sm] * 1e12 / PEAK_INT8_OPS:.1f}% of the "
             f"card's dense int8 peak)")
+    blocks, iters = 132, 2048
+    ms = time_ms(lambda: wgmma_rate_probe(blocks, iters, dev), iters=5, warmup=1)
+    wgmma_rate = blocks * 3 * 8 * iters * (64 * 128 * 32 * 2) / ms / 1e9
+    log(f"wgmma m64n128k32 s8 rate, 3 warpgroups per SM, shared-memory operands: {wgmma_rate:.1f} TOP/s "
+        f"({100 * wgmma_rate * 1e12 / PEAK_INT8_OPS:.1f}% of the card's dense int8 peak)")
 
     log(f"time_ms of an empty call (what the event pair itself reads): {time_ms(lambda: None):.4f} ms")
     rows = {}
-    for name, m, k, n in (("qkvo", 16384, 1024, 1024), ("ff_in", 16384, 1024, 2048), ("ff_out", 16384, 2048, 1024)):
-        x, w_q, s_w = _quant_inputs(dev, bf, m, k, n, 320)
-        w_qt = kernel_layout(w_q)
-        w_bf = (w_q.float() * s_w).to(bf)
+    for name, m, k, n in (("qkvo", 16384, 1024, 1024), ("ff_in", 16384, 1024, 2048), ("ff_out", 16384, 2048, 1024),
+                          ("qkvo_m2048", 2048, 1024, 1024)):
+        sets = _quant_sets(dev, m, k, n, 320)
+        reps = max(1, -(-24 // len(sets)))
+        x, w_q, s_w, w_qt, b = sets[0]
+        chosen = plan(m, k, n)
         launches_before = quant_matmul.launches
-        ms_kernel = time_ms(lambda: quant_matmul(x, w_q, s_w, w_qt=w_qt, **linear_floor))
+        ms_eager = time_ms(lambda: quant_matmul(x, w_q, s_w, w_qt=w_qt, b=b, **linear_floor))
         check(quant_matmul.launches == launches_before + 23, "quant_matmul did not count its launches")
-        ms_plain = time_ms(lambda: quant_matmul_plain(x, w_q, s_w, **linear_floor), iters=5, warmup=1)
-        ms_bf16 = time_ms(lambda: x @ w_bf)
-        sx = (x.float().abs().amax(-1, keepdim=True) / 127.0).clamp_min(1e-8)
-        xq = torch.round(x.float() / sx).to(torch.int8)
+        graph = {"kernel": time_graph_ms([lambda s_=s_: quant_matmul(s_[0], s_[1], s_[2], w_qt=s_[3], b=s_[4],
+                                                                     **linear_floor) for s_ in sets] * reps)}
+        variants = {}
+        for streamed in (False, True):
+            if not fits(streamed, k):
+                continue
+            split = chosen.split if streamed == chosen.streamed else max(1, 132 // -(-m // 128))
+            p = make_plan(m, k, n, streamed, split)
+            key = f"{'streamed' if streamed else 'fused'} split {p.split}"
+            out = launch_plan(x, w_qt, s_w, b, p, **linear_floor)
+            torch.cuda.synchronize()
+            check(torch.equal(out, quant_matmul_plain(x, w_q, s_w, b=b, **linear_floor)),
+                  f"quant_matmul {name} plan {key} differs from the plain version")
+            variants[key] = time_graph_ms([lambda s_=s_, p=p: launch_plan(s_[0], s_[3], s_[2], s_[4], p,
+                                                                         **linear_floor) for s_ in sets] * reps)
+        ms_plain = time_ms(lambda: quant_matmul_plain(x, w_q, s_w, b=b, **linear_floor), iters=5, warmup=1)
+        w_bfs = [(s_[1].float() * s_[2]).to(bf) for s_ in sets]
+        graph["bf16_matmul"] = time_graph_ms([lambda s_=s_, w_=w_: s_[0] @ w_ for s_, w_ in zip(sets, w_bfs)] * reps)
+        ms_bf16 = time_ms(lambda: x @ w_bfs[0])
 
-        def library():  # PyTorch's quantize ops, one library int8 GEMM, PyTorch's rescale
-            sx_ = (x.float().abs().amax(-1, keepdim=True) / 127.0).clamp_min(1e-8)
-            xq_ = torch.round(x.float() / sx_).to(torch.int8)
-            return ((torch._int_mm(xq_, w_q).float() * sx_) * s_w).to(bf)
+        def library(x_, w_q_, s_w_, b_):  # PyTorch's quantize ops, one library int8 GEMM (weights column-major, the
+            # layout cuBLASLt's int8 kernels take), PyTorch's rescale + bias
+            sx_ = (x_.float().abs().amax(-1, keepdim=True) / 127.0).clamp_min(1e-8)
+            xq_ = torch.round(x_.float() / sx_).to(torch.int8)
+            return ((torch._int_mm(xq_, w_q_).float() * sx_) * s_w_).to(bf) + b_
 
         try:
-            lib_err = float((library().float() - quant_matmul_plain(x, w_q, s_w, **linear_floor).float()).abs().max())
-            ms_lib, ms_int_mm = time_ms(library), time_ms(lambda: torch._int_mm(xq, w_q))
+            lib_err = float((library(x, w_qt.t(), s_w, b).float()
+                             - quant_matmul_plain(x, w_q, s_w, b=b, **linear_floor).float()).abs().max())
+            ms_lib = time_ms(lambda: library(x, w_qt.t(), s_w, b))
+            xqs = [torch.round(s_[0].float() / (s_[0].float().abs().amax(-1, keepdim=True) / 127.0).clamp_min(1e-8))
+                   .to(torch.int8) for s_ in sets]
+            graph["int_mm"] = time_graph_ms([lambda xq_=xq_, s_=s_: torch._int_mm(xq_, s_[3].t())
+                                             for xq_, s_ in zip(xqs, sets)] * reps)
+            del xqs
         except (RuntimeError, AttributeError) as e:  # the yardstick only: this build has no int8 GEMM call
             log(f"quant_matmul {name}: torch._int_mm is not available here ({type(e).__name__}: {e})")
-            lib_err = ms_lib = ms_int_mm = None
-        nbytes = m * k * 2 + k * n + n * 4 + m * n * 2  # x, w_q, s_w, out
+            lib_err = ms_lib = None
+            graph["int_mm"] = None
+        nbytes = m * k * 2 + k * n + n * 4 + n * 2 + m * n * 2  # x, w_q, s_w, b, out
         bms, by = bound_ms(2.0 * m * k * n, nbytes, PEAK_INT8_OPS)
-        log(f"quant_matmul times, {name} ({m}, {k}) x ({k}, {n}) bf16: kernel {ms_kernel:.4f} ms "
-            f"({2.0 * m * k * n / ms_kernel / 1e9:.1f} TOP/s), plain {ms_plain:.4f} ms, library (PyTorch quantize + "
-            f"torch._int_mm + rescale; its max abs difference from the plain version {lib_err}) {ms_lib} ms, of which "
-            f"torch._int_mm on pre-quantized operands {ms_int_mm} ms; bf16 torch.matmul of the same shape "
-            f"{ms_bf16:.4f} ms; bound {bms:.4f} ms ({by}) = {100 * bms / ms_kernel:.1f}% of the kernel's time")
-        rows[name] = {"ms": ms_kernel, "plain_ms": ms_plain, "library_ms": ms_lib, "int_mm_ms": ms_int_mm,
-                      "bf16_matmul_ms": ms_bf16, "bound_ms": bms, "bound_by": by}
-        del x, w_q, s_w, w_qt, w_bf, xq, sx
+        log(f"quant_matmul times, {name} ({m}, {k}) x ({k}, {n}) bf16 with bias, {len(sets)} input sets: plan "
+            f"{'streamed' if chosen.streamed else 'fused'} split {chosen.split} ({chosen.blocks} blocks); graph: kernel {graph['kernel']:.4f} ms "
+            f"({2.0 * m * k * n / graph['kernel'] / 1e9:.1f} TOP/s), torch._int_mm on pre-quantized operands "
+            f"{graph['int_mm']} ms, bf16 torch.matmul {graph['bf16_matmul']:.4f} ms; bound {bms:.4f} ms ({by}) = "
+            f"{100 * bms / graph['kernel']:.1f}% of the kernel's time; eager: kernel {ms_eager:.4f} ms, plain "
+            f"{ms_plain:.4f} ms, library (PyTorch quantize + torch._int_mm + rescale + bias; its max abs difference "
+            f"from the plain version {lib_err}) {ms_lib} ms, bf16 torch.matmul {ms_bf16:.4f} ms")
+        for key, ms_v in variants.items():
+            log(f"  quant_matmul {name} plan {key}: graph {ms_v:.4f} ms ({100 * bms / ms_v:.1f}% of the bound)")
+        rows[name] = {"ms": graph["kernel"], "eager_ms": ms_eager, "plain_ms": ms_plain, "library_ms": ms_lib,
+                      "int_mm_ms": graph["int_mm"], "bf16_matmul_ms": graph["bf16_matmul"], "bound_ms": bms,
+                      "bound_by": by, "variants_ms": variants}
+        del sets, x, w_q, s_w, w_qt, b, w_bfs
         torch.cuda.empty_cache()
     return {"name": "quant_matmul", "route": "cuda", "source": "f5tts_tpu_torch/csrc/quant_matmul.cu",
             "replaces": "f5tts_tpu/ops/pallas/quant_matmul.py:36", "max_abs_err": worst, **rows["qkvo"],
-            "mma_sync_s8_top_s": mma_rate,
+            "mma_sync_s8_top_s": mma_rate, "wgmma_s8_top_s": wgmma_rate,
             "other_shapes": {k: v for k, v in rows.items() if k != "qkvo"}}
 
 
@@ -963,10 +1050,20 @@ def int8_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card: str, launches: 
         f"quant_matmul launches per solve {int8_bench['launch_counts'].get('quant_matmul', 0)} (want {moved})")
     check(int8_bench["launch_counts"].get("quant_matmul", 0) == moved and gemm_int8 == gemm_bf16 - moved,
           "the six linears of every block did not all move from library GEMMs to quant_matmul")
+    # the bias of those linears is added inside quant_matmul: the bf16 path's separate adds are gone; the
+    # feed-forward out linear (K 2048) takes the streamed path, whose pre-pass is a launch of its own
+    ew_bf16, ew_int8 = (bench["launch_counts"].get("elementwise", 0) for bench in (bf16_bench, int8_bench))
+    prepass, want_prepass = int8_bench["launch_counts"].get("quant_prepass", 0), dit_cfg.depth * 20
+    log(f"elementwise launches per solve: int8 {ew_int8} against bf16 {ew_bf16}: {ew_bf16 - ew_int8} fewer (the "
+        f"{moved} bias adds of the six block linears are fused into quant_matmul); quant_matmul pre-pass launches "
+        f"{prepass} (want {want_prepass}: feed-forward out, K 2048, takes the streamed path)")
+    check(ew_bf16 - ew_int8 >= moved and prepass == want_prepass,
+          "the int8 solve's elementwise launches did not drop by the fused bias adds, or the pre-pass count is off")
 
 
 BENCH_FAMILIES = (("flash_attention", ("flash_wgmma", "flash_fwd")), ("rope_rows", ("rope_rows",)),
-                  ("conv_pos", ("conv_pair", "conv_generic")), ("quant_matmul", ("quant_matmul_kernel",)))
+                  ("conv_pos", ("conv_pair", "conv_generic")), ("quant_matmul", ("quant_matmul_kernel",)),
+                  ("quant_prepass", ("quantize_rows_kernel",)))
 
 
 def bench_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card: str, quantization: str = "none") -> dict:
@@ -1553,7 +1650,8 @@ def main():
     log(json.dumps({"kernels": [{key: k[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
         "bound_by", "library_ms", "launches_by_path",
-        *(key for key in ("int_mm_ms", "bf16_matmul_ms", "mma_sync_s8_top_s", "graph_ms", "variants_ms", "other_shapes",
+        *(key for key in ("eager_ms", "int_mm_ms", "bf16_matmul_ms", "mma_sync_s8_top_s", "wgmma_s8_top_s",
+                          "graph_ms", "variants_ms", "other_shapes",
                           "layouts_ms", "ablation_rows", "rope_rows_launches",
                           "rope_rows_launches_by_path") if key in k))}
         for k in kernels]}))

@@ -17,7 +17,10 @@
 //            k-step of 16 moves the start by 16 rows = 2048 bytes.
 // Register fragments of wgmma m64nNk16: warp w of the warpgroup owns rows
 // 16w..16w+15 and, within them, the mma.sync m16n8k16 layout (attention.cuh):
-// A as a[0..3], D as d[4j..4j+3] for columns 8j..8j+7.
+// A as a[0..3], D as d[4j..4j+3] for columns 8j..8j+7. An int8 tile of
+// 128-byte rows (128 k values) is the same K-major layout: a k-step of 32
+// moves the start by 32 bytes, and an m64nNk32 s32 accumulator has the fp32
+// one's register layout.
 #pragma once
 
 #include <cuda.h>
@@ -119,6 +122,18 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float* d, uint64_t desc_a, ui
         : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
 }
 
+// d (64 x 128 int32, this thread's 64) (+)= A (64 x 32 int8, K-major descriptor) . B (32 x 128 int8,
+// K-major descriptor); scale_d = 0 overwrites d. Integer wgmma takes both operands K-major (no transpose).
+__device__ __forceinline__ void wgmma_m64n128k32_s8(uint32_t* d, uint64_t desc_a, uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // Orders this thread's earlier generic-proxy writes to shared memory before
 // later async-proxy reads of it (a wgmma operand written with st.shared).
 __device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
@@ -174,6 +189,28 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
         "r"(c3)
         : "memory");
 }
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
+        ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+        : "memory");
+}
+// A box from shared memory at `src` (written through the generic proxy and
+// fenced with fence_proxy_async) to the tensor at (c0, c1); out-of-bounds
+// elements are not written. Completion is tracked per thread in bulk groups.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0, int c1) {
+    asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
+                 ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0), "r"(c1)
+                 : "memory");
+}
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+// At most N of this thread's bulk groups still read their shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() { asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory"); }
+// At most N of this thread's bulk groups are still incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() { asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory"); }
 
 // `bytes` (a multiple of 16) of contiguous global memory at `src` into shared
 // memory at `dst` (both 16-byte aligned): a 1-D bulk copy (no tensor map),
@@ -269,6 +306,22 @@ inline int make_map_bf16(CUtensorMap* map, const void* base, int rank, const uin
     CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank, const_cast<void*>(base), gdim, gstride, box,
                     estride, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                     CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+
+// A 2-D tensor map of `type` over `rows` rows of `inner` elements (`row_stride`
+// bytes apart, a multiple of 16) with a box of box_inner (128 bytes of them) x
+// box_rows, 128-byte swizzle, zero fill out of bounds (loads) and clipping
+// (stores). Returns a cudaError_t.
+inline int make_map_2d(CUtensorMap* map, CUtensorMapDataType type, const void* base, uint64_t inner, uint64_t rows,
+                       uint64_t row_stride, uint32_t box_inner, uint32_t box_rows) {
+    EncodeTiledFn fn = encode_tiled_fn();
+    if (fn == nullptr) return (int)cudaErrorNotSupported;
+    cuuint64_t gdim[2] = {inner, rows}, gstride[1] = {row_stride};
+    cuuint32_t box[2] = {box_inner, box_rows}, estride[2] = {1, 1};
+    CUresult r = fn(map, type, 2, const_cast<void*>(base), gdim, gstride, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                    CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 

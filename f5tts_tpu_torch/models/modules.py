@@ -47,16 +47,14 @@ def linear(p, x):
 def _linear_int8(p, x):
     """W8A8 dynamic-quantized linear: per-out-channel weight scales ``s_w
     (out,)``, per-token activation scales, int32 accumulation, through the
-    ``quant_matmul`` wrapper (one kernel launch on a GPU tensor) with this
-    function's floor in the JAX package: the scale at 1e-8, not the abs-max at
-    1e-6. Params: ``w_q`` int8 ``(in, out)``, ``s_w``, optional ``b``, and on a
-    GPU the kernel-layout copy ``w_qt``."""
+    ``quant_matmul`` wrapper (one kernel launch on a GPU tensor, the bias
+    added inside it as the JAX package adds it: after the rounding to
+    ``x.dtype``) with this function's floor in the JAX package: the scale at
+    1e-8, not the abs-max at 1e-6. Params: ``w_q`` int8 ``(in, out)``,
+    ``s_w``, optional ``b``, and on a GPU the kernel-layout copy ``w_qt``."""
     k, n = p["w_q"].shape
-    y = quant_matmul(x.reshape(-1, k).contiguous(), p["w_q"], p["s_w"], w_qt=p.get("w_qt"),
-                     amax_floor=0.0, scale_floor=1e-8).reshape(*x.shape[:-1], n)
-    if "b" in p:
-        y = y + p["b"].to(x.dtype)
-    return y
+    return quant_matmul(x.reshape(-1, k).contiguous(), p["w_q"], p["s_w"], w_qt=p.get("w_qt"), b=p.get("b"),
+                        amax_floor=0.0, scale_floor=1e-8).reshape(*x.shape[:-1], n)
 
 
 def quantize_linear_params(p):

@@ -4,7 +4,9 @@ plain PyTorch version.
 Replaces ``f5tts_tpu/ops/pallas/quant_matmul.py:quant_matmul``: per-row
 dynamic int8 quantization of the activations, int8 x int8 -> int32, rescale by
 the row and column scales, output in ``x.dtype``. ``x (M, K)`` bf16 or fp32,
-``w_q (K, N)`` int8, ``s_w (N,)`` fp32.
+``w_q (K, N)`` int8, ``s_w (N,)`` fp32, and an optional bias ``b (N,)`` added
+as ``modules._linear_int8`` adds it: after the rounding to ``x.dtype``, in
+``x.dtype`` (one launch instead of a matmul and an add).
 
 Two floors guard the row scale ``sx = max(max(ax, amax_floor) / 127,
 scale_floor)``, because the JAX package has two conventions: its Pallas kernel
@@ -16,19 +18,119 @@ The kernel reads the weights K-contiguous, ``w_qt (N, K)``: ``kernel_layout``
 makes that copy once, when the parameters are quantized; a CUDA call without
 it raises instead of transposing per call. Kernel and plain version agree bit
 for bit: every step is exact integer arithmetic or one correctly rounded fp32
-operation in a fixed order. The kernel's source notes its bound and design;
-``PERF.md`` has its times on the card.
+operation in a fixed order. ``plan`` picks the kernel's path and its split of
+the N tiles over blocks from the shape (pure Python, tested on the CPU). The
+kernel's source notes its bound and design; ``PERF.md`` has its times on the
+card.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
 from f5tts_tpu_torch.ops.kernels import _build
 
 _DTYPES = (torch.bfloat16, torch.float32)
+H100_SMS = 132
+MAX_SMEM = 232448  # dynamic shared memory a block may ask for on sm_90
+MAX_K = 65536  # the kernel's int32 accumulators stay exact: K * 127 * 127 < 2^31
+PANEL = 128  # k values (bytes) of one swizzled operand row
+BM = 128  # rows of a block
+BN = 128  # output columns of a tile
+NCW = 4  # consumer warpgroups
+STAGING = NCW * 4 * 8 * 128  # the epilogue's 8-row x 128-byte piece per consumer warp
+COLUMNS = NCW * 2 * BN * 4  # per consumer warpgroup, its columns' s_w and bias as fp32
+MAX_STAGES = 12  # the kernel's ring holds at most this many stages
+MIN_STAGES = 3  # and a plan at least this many
+BARRIERS = (2 * MAX_STAGES + 3 * (NCW + 1) * 4) * 8  # the ring's full / empty pairs, the quantize phase's row slots
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _fixed_bytes(streamed: bool, k: int) -> int:
+    return 1024 + (0 if streamed else BM * _cdiv(k, PANEL) * PANEL) + STAGING + BM * 4 + COLUMNS + BARRIERS
+
+
+def _stage_bytes(streamed: bool) -> int:
+    return (BM * PANEL if streamed else 0) + BN * PANEL
+
+
+def ring_stages(streamed: bool, k: int) -> int:
+    """Stages of the kernel's ring (``Cfg::stages``): as many as the block's
+    shared memory holds beside the rest, at most ``MAX_STAGES``; 0 below
+    ``MIN_STAGES`` (the path does not take this K)."""
+    n = min((MAX_SMEM - _fixed_bytes(streamed, k)) // _stage_bytes(streamed), MAX_STAGES)
+    return n if n >= MIN_STAGES else 0
+
+
+def smem_bytes(streamed: bool, k: int) -> int:
+    """Dynamic shared memory of the product kernel (``Cfg::smem`` in the
+    source): 1024 bytes of alignment slack, the fused path's int8 rows for the
+    whole K, the epilogue staging, the row scales, the tile columns' scales
+    and bias, the barriers and the ring's stages (A and B panels streamed, or
+    B only)."""
+    return _fixed_bytes(streamed, k) + ring_stages(streamed, k) * _stage_bytes(streamed)
+
+
+def fits(streamed: bool, k: int) -> bool:
+    """Whether the path takes this K: a ring of at least ``MIN_STAGES``
+    stages beside the rest (the fused path: K up to 1152)."""
+    return ring_stages(streamed, k) > 0
+
+
+@dataclass(frozen=True)
+class Plan:
+    """One launch: 128-row blocks, the ``n_tiles`` tiles of 128 columns in
+    runs of ``per`` over ``split`` blocks per row block; ``streamed``: the
+    pre-pass and A by TMA."""
+    streamed: bool
+    split: int
+    row_blocks: int
+    n_tiles: int
+    per: int
+    smem: int
+    bm: int = BM
+    bn: int = BN
+
+    @property
+    def blocks(self) -> int:
+        return self.row_blocks * self.split
+
+    def n_range(self, y: int) -> range:
+        """The N tiles block column ``y`` owns."""
+        return range(y * self.per, min(self.n_tiles, (y + 1) * self.per))
+
+    def row_range(self, x: int, m: int) -> range:
+        """The rows block row ``x`` owns."""
+        return range(x * BM, min(m, (x + 1) * BM))
+
+
+def make_plan(m: int, k: int, n: int, streamed: bool, split: int) -> Plan:
+    """A plan with its derived counts; ``split`` shrinks to the blocks that
+    own at least one tile."""
+    n_tiles = _cdiv(n, BN)
+    per = _cdiv(n_tiles, split)
+    return Plan(streamed, _cdiv(n_tiles, per), _cdiv(m, BM), n_tiles, per, smem_bytes(streamed, k))
+
+
+def plan(m: int, k: int, n: int, sms: int = H100_SMS) -> Plan:
+    """The launch for ``x (m, k) @ w (k, n)``. The fused path (rows quantized
+    into shared memory once per block) where it takes K and the 128-row
+    blocks alone occupy at least half the SMs; else the streamed path, with N
+    split over as many blocks per row block as one wave holds (its rows were
+    quantized once, by the pre-pass). On an H100 (``PERF.md``) the fused path
+    led at M 16384, K 1024, and the streamed path at M 2048 (where the fused
+    one splits N and quantizes each row four times) and at K 2048 (where the
+    fused one's rows no longer fit at 128 a block)."""
+    row_blocks = _cdiv(m, BM)
+    if fits(False, k) and 2 * row_blocks >= sms:
+        return make_plan(m, k, n, False, 1)
+    return make_plan(m, k, n, True, max(1, sms // row_blocks))
 
 
 def kernel_layout(w_q: torch.Tensor) -> torch.Tensor:
@@ -36,36 +138,42 @@ def kernel_layout(w_q: torch.Tensor) -> torch.Tensor:
     return w_q.transpose(-1, -2).contiguous()
 
 
-def quant_matmul_plain(x, w_q, s_w, *, amax_floor: float = 1e-6, scale_floor: float = 0.0):
+def quant_matmul_plain(x, w_q, s_w, *, b=None, amax_floor: float = 1e-6, scale_floor: float = 0.0):
     """What the kernel computes, in PyTorch. Divisions are by tensors (a
     division by a Python scalar becomes a multiply by its reciprocal on CUDA),
     and the integer product is taken in float64, which is exact (sums stay
-    under 2^53; fp32 would lose bits above 2^24 at K = 2048)."""
+    under 2^53; fp32 would lose bits above 2^24 at K = 2048). The bias is
+    ``_linear_int8``'s add, after the rounding to ``x.dtype``."""
     x32 = x.float()
     ax = x32.abs().amax(-1, keepdim=True)
     sx = torch.clamp_min(torch.clamp_min(ax, amax_floor) / torch.full_like(ax, 127.0), scale_floor)
     xq = torch.round(x32 / sx).to(torch.int8)
     acc = (xq.double() @ w_q.double()).float()
-    return ((acc * sx) * s_w.float()).to(x.dtype)
+    y = ((acc * sx) * s_w.float()).to(x.dtype)
+    return y if b is None else y + b.to(x.dtype)
 
 
 def _lib():
     lib = _build.load("quant_matmul")
     if not getattr(lib, "_f5_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.f5_quant_matmul.argtypes = [p, p, p, p, i, i, i, f, f, i, p]
+        lib.f5_quant_matmul.argtypes = [p, p, p, p, p, p, p, i, i, i, f, f, i, i, i, p]
         lib.f5_quant_matmul.restype = i
+        lib.f5_quant_matmul_smem.argtypes = [i, i]
+        lib.f5_quant_matmul_smem.restype = ctypes.c_longlong
         lib.f5_quant_matmul_max_k.argtypes = []
         lib.f5_quant_matmul_max_k.restype = i
         lib.f5_quant_matmul_mma_rate.argtypes = [i, i, p, p]
         lib.f5_quant_matmul_mma_rate.restype = i
+        lib.f5_quant_matmul_wgmma_rate.argtypes = [i, i, p, p]
+        lib.f5_quant_matmul_wgmma_rate.restype = i
         lib.f5_error_string.argtypes = [i]
         lib.f5_error_string.restype = ctypes.c_char_p
         lib._f5_typed = True
     return lib
 
 
-def _check(lib, x, w_q, s_w, w_qt, amax_floor, scale_floor):
+def _check(lib, x, w_q, s_w, w_qt, b, amax_floor, scale_floor) -> Plan:
     if x.ndim != 2 or w_q.ndim != 2 or w_q.shape[0] != x.shape[1]:
         raise ValueError(f"x must be (M, K) and w_q (K, N), got {tuple(x.shape)} and {tuple(w_q.shape)}")
     m, k = x.shape
@@ -80,43 +188,52 @@ def _check(lib, x, w_q, s_w, w_qt, amax_floor, scale_floor):
                          "parameters are quantized (it is not rebuilt per call)")
     if w_qt.dtype != torch.int8 or w_qt.shape != (n, k):
         raise ValueError(f"w_qt must be the ({n}, {k}) int8 kernel layout of w_q, got {w_qt.dtype} {tuple(w_qt.shape)}")
+    if b is not None and (b.shape != (n,) or not b.is_floating_point()):
+        raise ValueError(f"b must be a ({n},) floating tensor, got {b.dtype} {tuple(b.shape)}")
     if m < 1 or k % 16 or n % 16:
         raise ValueError(f"quant_matmul takes M >= 1 and K, N multiples of 16, got M={m}, K={k}, N={n}")
     if k > lib.f5_quant_matmul_max_k():
-        raise ValueError(f"K = {k} exceeds {lib.f5_quant_matmul_max_k()}: a block keeps the int8 copy of its rows "
-                         "for the whole K in shared memory")
-    if not (w_q.device == s_w.device == w_qt.device == x.device):
-        raise ValueError(f"x, w_q, s_w and w_qt must be on one device, got {x.device}, {w_q.device}, {s_w.device}, "
-                         f"{w_qt.device}")
+        raise ValueError(f"K = {k} exceeds {lib.f5_quant_matmul_max_k()}: the int32 accumulators would no longer "
+                         "be exact")
+    devices = [x.device, w_q.device, s_w.device, w_qt.device] + ([] if b is None else [b.device])
+    if any(d != x.device for d in devices):
+        raise ValueError(f"x, w_q, s_w, w_qt and b must be on one device, got {devices}")
     if not (amax_floor > 0.0 or scale_floor > 0.0) or amax_floor < 0.0 or scale_floor < 0.0:
         raise ValueError(f"one of amax_floor, scale_floor must be positive and none negative, got {amax_floor}, "
                          f"{scale_floor}")
+    return plan(m, k, n, torch.cuda.get_device_properties(x.device).multi_processor_count)
 
 
-def quant_matmul(x, w_q, s_w, *, w_qt=None, amax_floor: float = 1e-6, scale_floor: float = 0.0):
-    """``x (M, K)`` bf16/fp32, ``w_q (K, N)`` int8, ``s_w (N,)`` fp32 ->
-    ``(M, N)`` in ``x.dtype``. CPU tensors take the plain version; CUDA tensors
-    launch the kernel (which reads ``w_qt``) or raise. Serving-only: a CUDA
-    input that requires grad (with grad enabled) raises."""
-    dev = x.device
-    if dev.type == "cpu":
-        return quant_matmul_plain(x, w_q, s_w, amax_floor=amax_floor, scale_floor=scale_floor)
-    if dev.type != "cuda":
-        raise ValueError(f"quant_matmul runs on cuda (kernel) or cpu (plain), got {dev}")
-    if torch.is_grad_enabled() and (x.requires_grad or s_w.requires_grad):
-        raise RuntimeError("quant_matmul is a serving kernel and has no backward (run under torch.no_grad())")
-    lib = _lib()
-    _check(lib, x, w_q, s_w, w_qt, amax_floor, scale_floor)
-    ptrs = (x.data_ptr(), w_qt.data_ptr(), s_w.data_ptr())
-    if (ptrs[0] | ptrs[1] | ptrs[2]) & 15 or not (x.is_contiguous() and w_qt.is_contiguous() and s_w.is_contiguous()):
-        raise ValueError("x, w_qt and s_w must be contiguous and 16-byte aligned")
+def kernel_smem_bytes(streamed: bool, k: int) -> int:
+    """The product kernel's own count of its dynamic shared memory (card
+    only; ``smem_bytes`` must agree where the path takes K, both 0 elsewhere)."""
+    return int(_lib().f5_quant_matmul_smem(int(streamed), k))
+
+
+_checked: dict = {}  # call signature -> its plan, for signatures that passed _check (a DiT forward repeats six)
+
+
+def launch_plan(x, w_qt, s_w, b, p: Plan, amax_floor: float, scale_floor: float):
+    """One launch of the kernel on CUDA tensors with plan ``p`` (checked
+    shapes; ``quant_matmul`` picks the plan, measurements may pass another).
+    Raises if the launch fails."""
+    ptrs = (x.data_ptr(), w_qt.data_ptr(), s_w.data_ptr(), 0 if b is None else b.data_ptr())
+    if (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3]) & 15 or not (x.is_contiguous() and w_qt.is_contiguous()
+                                                           and s_w.is_contiguous() and (b is None or b.is_contiguous())):
+        raise ValueError("x, w_qt, s_w and b must be contiguous and 16-byte aligned")
     m, k = x.shape
-    n = w_q.shape[1]
+    n = w_qt.shape[0]
+    dev = x.device
     out = torch.empty((m, n), dtype=x.dtype, device=dev)
+    xq = torch.empty((m, k), dtype=torch.int8, device=dev) if p.streamed else None
+    sx = torch.empty((m,), dtype=torch.float32, device=dev) if p.streamed else None
+    lib = _lib()
 
     def launch():
-        return lib.f5_quant_matmul(*ptrs, out.data_ptr(), m, k, n, amax_floor, scale_floor,
-                                   int(x.dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream)
+        return lib.f5_quant_matmul(*ptrs, out.data_ptr(), None if xq is None else xq.data_ptr(),
+                                   None if sx is None else sx.data_ptr(), m, k, n, amax_floor, scale_floor,
+                                   int(x.dtype == torch.bfloat16), int(p.streamed), p.split,
+                                   torch.cuda.current_stream(dev).cuda_stream)
 
     if dev.index is None or dev.index == torch.cuda.current_device():
         err = launch()
@@ -125,6 +242,28 @@ def quant_matmul(x, w_q, s_w, *, w_qt=None, amax_floor: float = 1e-6, scale_floo
             err = launch()
     if err != 0:
         raise RuntimeError(f"quant_matmul kernel launch failed: {lib.f5_error_string(err).decode()}")
+    return out
+
+
+def quant_matmul(x, w_q, s_w, *, w_qt=None, b=None, amax_floor: float = 1e-6, scale_floor: float = 0.0):
+    """``x (M, K)`` bf16/fp32, ``w_q (K, N)`` int8, ``s_w (N,)`` fp32, optional
+    bias ``b (N,)`` -> ``(M, N)`` in ``x.dtype``. CPU tensors take the plain
+    version; CUDA tensors launch the kernel (which reads ``w_qt``) or raise.
+    Serving-only: a CUDA input that requires grad (with grad enabled) raises."""
+    dev = x.device
+    if dev.type == "cpu":
+        return quant_matmul_plain(x, w_q, s_w, b=b, amax_floor=amax_floor, scale_floor=scale_floor)
+    if dev.type != "cuda":
+        raise ValueError(f"quant_matmul runs on cuda (kernel) or cpu (plain), got {dev}")
+    if torch.is_grad_enabled() and (x.requires_grad or s_w.requires_grad or (b is not None and b.requires_grad)):
+        raise RuntimeError("quant_matmul is a serving kernel and has no backward (run under torch.no_grad())")
+    signature = (x.shape, x.dtype, dev, w_q.shape, w_q.dtype, w_q.device, s_w.shape, s_w.dtype, s_w.device,
+                 None if w_qt is None else (w_qt.shape, w_qt.dtype, w_qt.device),
+                 None if b is None else (b.shape, b.dtype, b.device), amax_floor, scale_floor)
+    p = _checked.get(signature)
+    if p is None:
+        p = _checked[signature] = _check(_lib(), x, w_q, s_w, w_qt, b, amax_floor, scale_floor)
+    out = launch_plan(x, w_qt, s_w, None if b is None else b.to(x.dtype), p, amax_floor, scale_floor)
     quant_matmul.launches += 1
     return out
 
@@ -132,12 +271,23 @@ def quant_matmul(x, w_q, s_w, *, w_qt=None, amax_floor: float = 1e-6, scale_floo
 quant_matmul.launches = 0
 
 
+def _rate_probe(fn_name: str, blocks: int, iters: int, device) -> None:
+    lib = _lib()
+    sink = torch.zeros((1,), dtype=torch.int32, device=device)
+    err = getattr(lib, fn_name)(blocks, iters, sink.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} launch failed: {lib.f5_error_string(err).decode()}")
+
+
 def mma_rate_probe(blocks: int, iters: int, device) -> None:
     """Measurement aid: launch the kernel source's ``mma.sync`` int8 rate
     loop (``blocks`` blocks of 8 warps, ``8 * iters`` m16n8k32 products per
     warp, no memory traffic). The caller times it; nothing is returned."""
-    lib = _lib()
-    sink = torch.zeros((1,), dtype=torch.int32, device=device)
-    err = lib.f5_quant_matmul_mma_rate(blocks, iters, sink.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"mma rate probe launch failed: {lib.f5_error_string(err).decode()}")
+    _rate_probe("f5_quant_matmul_mma_rate", blocks, iters, device)
+
+
+def wgmma_rate_probe(blocks: int, iters: int, device) -> None:
+    """Measurement aid: launch the kernel source's ``wgmma`` int8 rate loop
+    (``blocks`` blocks of 3 warpgroups, ``8 * iters`` m64n128k32 products per
+    warpgroup from one shared-memory tile pair). The caller times it."""
+    _rate_probe("f5_quant_matmul_wgmma_rate", blocks, iters, device)

@@ -1,13 +1,15 @@
-"""The launch plans of two CUDA kernels, checked on the CPU (no card needed):
-the decode-attention kernel's split of the cache positions over a
-thread-block cluster, and the attention-layout ablation kernel's count of its
-``wgmma`` products in m16n8k16 equivalents against ``mma_per_call``."""
+"""The launch plans of three CUDA kernels, checked on the CPU (no card
+needed): the decode-attention kernel's split of the cache positions over a
+thread-block cluster, the attention-layout ablation kernel's count of its
+``wgmma`` products in m16n8k16 equivalents against ``mma_per_call``, and the
+int8 matmul's tiles, N split and path."""
 
 import pytest
 import torch
 
 from f5tts_tpu_torch.ops.kernels import ablate_attention as ta
 from f5tts_tpu_torch.ops.kernels import decode_attention as td
+from f5tts_tpu_torch.ops.kernels import quant_matmul as tqm
 from f5tts_tpu_torch.scripts import decode_splits
 
 # (b, n_kv, group, total): Parler's self- and cross-attention at b 1 / 16 / 32, GQA groups, short and long caches
@@ -101,3 +103,61 @@ def test_wgmma_schedule_issues_the_layouts_extra_products():
     unpacked = per_tile["unpacked"]
     assert per_tile == {"unpacked": unpacked, "packed_blockdiag": 4 * unpacked, "packed_sep_o": 3 * unpacked,
                         "sumdiff_blockdiag": 4 * unpacked, "sumdiff_dense_cross": 4 * unpacked}
+
+
+# the rows quant_matmul gets from the int8 engine: 2 (CFG) x batch bucket x duration bucket
+ENGINE_M = sorted({2 * b * n for n in (256, 512, 768, 1024, 1536, 2048, 3072, 4096) for b in (1, 2, 4, 8, 16, 32)})
+BASE_KN = [(1024, 1024), (1024, 2048), (2048, 1024)]  # F5-TTS Base: q/k/v/out, ff in, ff out
+
+
+@pytest.mark.parametrize("k,n", BASE_KN + [(4096, 1024), (5504, 64), (80, 48), (16, 16), (1152, 1040)])
+@pytest.mark.parametrize("m", [1, 77, 300, 512, 1000, 2048, 6144, 16384, 16385])
+def test_quant_plan_covers_every_row_and_column_exactly_once(m, k, n):
+    p = tqm.plan(m, k, n)
+    rows = [r for x in range(p.row_blocks) for r in p.row_range(x, m)]
+    assert rows == list(range(m))
+    assert all(len(p.n_range(y)) >= 1 for y in range(p.split))  # no block without a tile
+    cols = [c for y in range(p.split) for t in p.n_range(y) for c in range(t * p.bn, min(n, (t + 1) * p.bn))]
+    assert cols == list(range(n))
+    assert p.smem == tqm.smem_bytes(p.streamed, k) <= tqm.MAX_SMEM
+    assert tqm.fits(p.streamed, k) and tqm.ring_stages(p.streamed, k) >= tqm.MIN_STAGES
+    assert p.split <= 65535 and (p.bm, p.bn) == (tqm.BM, tqm.BN)
+
+
+@pytest.mark.parametrize("k,n", BASE_KN)
+def test_quant_plan_fills_the_card_at_every_engine_bucket(k, n):
+    """Every M the engine produces gets at least ~0.7 x 132 blocks, or as
+    many as its tiles allow (every N tile its own block); the fused path only
+    where its 128-row blocks alone occupy half the card, so it never splits N
+    (which would quantize a row in every block that shares it)."""
+    for m in ENGINE_M:
+        p = tqm.plan(m, k, n)
+        assert p.blocks >= 0.7 * tqm.H100_SMS or p.split == p.n_tiles, (m, p)
+        assert p.streamed == (k > 1152 or 2 * -(-m // 128) < tqm.H100_SMS), (m, p)
+        assert p.streamed or p.split == 1
+
+
+def test_quant_plan_has_a_path_for_every_shape_the_first_kernel_took():
+    """The kernel's first design took K up to 5504 (multiples of 16) at any M and N: the
+    fused path while the 128 rows' int8 copy fits the block's shared memory
+    beside a ring of 3 stages (K up to 1152) and the rows fill half the card,
+    the streamed path elsewhere, up to ``MAX_K``."""
+    for k in range(16, 5504 + 1, 16):
+        for m, n in ((1, 16), (300, 48), (16384, 1024)):
+            p = tqm.plan(m, k, n)
+            assert p.smem <= tqm.MAX_SMEM and p.blocks >= 1
+            assert p.streamed == (k > 1152 or m < 16384), k
+    assert tqm.plan(8, tqm.MAX_K, 16).streamed
+
+
+def test_quant_plan_at_the_serving_shapes():
+    """The bench geometry (16 x 1024 rows): one block per 128 rows on the
+    fused path, no N split (each row quantized once), at q/k/v/out and ff in;
+    ff out (K 2048) and a lone 1024-bucket request (M 2048) take the streamed
+    path, the latter split so that 128 blocks run."""
+    p = tqm.plan(16384, 1024, 1024)
+    assert (p.streamed, p.split, p.blocks) == (False, 1, 128)
+    assert (tqm.plan(16384, 1024, 2048).streamed, tqm.plan(16384, 1024, 2048).blocks) == (False, 128)
+    assert tqm.plan(16384, 2048, 1024).streamed
+    small = tqm.plan(2048, 1024, 1024)
+    assert small.streamed and small.blocks == 128 and small.split == 8

@@ -374,21 +374,68 @@ def _quant_case(dev, dtype, m, k, n):
 
 # bit-equal: exact integer products, and every fp32 step one correctly rounded
 # operation in the plain version's order. The first three shapes are the int8
-# engine's at the bench geometry (16 x 1024 rows of F5-TTS Base).
+# engine's at the bench geometry (16 x 1024 rows of F5-TTS Base); then a ragged
+# M, K and N under one tile, the smallest bucket (M 512) and a lone 1024-bucket
+# request (M 2048), which split N over blocks, K 4096 and 5504 (the streamed
+# path), and N no multiple of the 128-column tile.
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("m,k,n", [(16384, 1024, 1024), (16384, 1024, 2048), (16384, 2048, 1024), (1000, 1024, 1024),
-                                   (77, 80, 48), (300, 4096, 64)])
+                                   (77, 80, 48), (300, 4096, 64), (512, 1024, 1024), (2048, 1024, 1024),
+                                   (2048, 2048, 1024), (1001, 4096, 1040), (333, 5504, 208)])
 def test_quant_matmul_kernel_is_bit_equal_to_plain(dev, dtype, m, k, n):
     x, w_q, s_w = _quant_case(dev, dtype, m, k, n)
     w_qt = t_quant.kernel_layout(w_q)
+    b = torch.randn((n,), generator=torch.Generator().manual_seed(9)).to(dev, dtype)
     for floors in (dict(amax_floor=1e-6, scale_floor=0.0), dict(amax_floor=0.0, scale_floor=1e-8)):
-        before = t_quant.quant_matmul.launches
-        out = t_quant.quant_matmul(x, w_q, s_w, w_qt=w_qt, **floors)
+        for bias in (None, b):
+            before = t_quant.quant_matmul.launches
+            out = t_quant.quant_matmul(x, w_q, s_w, w_qt=w_qt, b=bias, **floors)
+            torch.cuda.synchronize()
+            assert t_quant.quant_matmul.launches == before + 1
+            assert out.shape == (m, n) and out.dtype == dtype
+            assert torch.equal(out, t_quant.quant_matmul_plain(x, w_q, s_w, b=bias, **floors))
+        # the fused bias is the kernel without it followed by the separate add, bit for bit
+        assert torch.equal(t_quant.quant_matmul(x, w_q, s_w, w_qt=w_qt, b=b, **floors),
+                           t_quant.quant_matmul(x, w_q, s_w, w_qt=w_qt, **floors) + b)
+
+
+# both paths the kernel is built for, at shapes and N splits each can take, against plain
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("streamed", [False, True])
+def test_quant_matmul_every_plan_is_bit_equal_to_plain(dev, dtype, streamed):
+    for m, k, n, split in ((300, 1024, 400, 1), (1000, 1152, 1024, 2), (129, 512, 1024, 3), (77, 2048, 208, 2)):
+        if not t_quant.fits(streamed, k):
+            continue
+        x, w_q, s_w = _quant_case(dev, dtype, m, k, n)
+        b = torch.randn((n,), generator=torch.Generator().manual_seed(10)).to(dev, dtype)
+        p = t_quant.make_plan(m, k, n, streamed, split)
+        out = t_quant.launch_plan(x, t_quant.kernel_layout(w_q), s_w, b, p, 0.0, 1e-8)
         torch.cuda.synchronize()
-        assert t_quant.quant_matmul.launches == before + 1
-        assert out.shape == (m, n) and out.dtype == dtype
-        assert torch.equal(out, t_quant.quant_matmul_plain(x, w_q, s_w, **floors))
+        assert torch.equal(out, t_quant.quant_matmul_plain(x, w_q, s_w, b=b, amax_floor=0.0, scale_floor=1e-8)), (
+            m, k, n, split)
+
+
+@pytest.mark.cuda
+def test_quant_matmul_in_a_cuda_graph(dev):
+    """Captured and replayed (both paths, with the bias): the replay's outputs
+    equal the plain version's on the inputs the graph reads."""
+    cases = [_quant_case(dev, torch.bfloat16, m, k, n) for m, k, n in ((2048, 1024, 1024), (300, 4096, 64))]
+    args = [(x, w_q, s_w, t_quant.kernel_layout(w_q), torch.randn((w_q.shape[1],), device=dev).bfloat16())
+            for x, w_q, s_w in cases]
+    for x, w_q, s_w, w_qt, b in args:  # warm: build, check, plan
+        t_quant.quant_matmul(x, w_q, s_w, w_qt=w_qt, b=b)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [t_quant.quant_matmul(x, w_q, s_w, w_qt=w_qt, b=b) for x, w_q, s_w, w_qt, b in args]
+    for x, *_ in args:
+        x.mul_(-0.5)  # new inputs in place: the replay must read them
+    graph.replay()
+    torch.cuda.synchronize()
+    for out, (x, w_q, s_w, _, b) in zip(outs, args):
+        assert torch.equal(out, t_quant.quant_matmul_plain(x, w_q, s_w, b=b))
 
 
 @pytest.mark.cuda
@@ -431,10 +478,12 @@ def test_quant_matmul_wrapper_raises_on_what_the_kernel_does_not_take(dev):
         t_quant.quant_matmul(x, w_q, s_w.bfloat16(), w_qt=w_qt)
     with pytest.raises(ValueError, match="contiguous"):
         t_quant.quant_matmul(x.t().contiguous().t(), w_q, s_w, w_qt=w_qt)
-    with pytest.raises(ValueError, match="shared memory"):
-        big = torch.zeros((8192, 16), dtype=torch.int8, device=dev)
-        t_quant.quant_matmul(torch.zeros((4, 8192), device=dev), big, s_w[:16].contiguous(),
+    with pytest.raises(ValueError, match="int32"):  # K past what the int32 accumulators hold exactly
+        big = torch.zeros((t_quant.MAX_K + 16, 16), dtype=torch.int8, device=dev)
+        t_quant.quant_matmul(torch.zeros((4, t_quant.MAX_K + 16), device=dev), big, s_w[:16].contiguous(),
                              w_qt=t_quant.kernel_layout(big))
+    with pytest.raises(ValueError, match="b must be"):
+        t_quant.quant_matmul(x, w_q, s_w, w_qt=w_qt, b=s_w[:16].contiguous())
     with pytest.raises(ValueError, match="floor"):
         t_quant.quant_matmul(x, w_q, s_w, w_qt=w_qt, amax_floor=0.0, scale_floor=0.0)
     with pytest.raises(RuntimeError, match="no backward"):

@@ -173,6 +173,54 @@ def test_linear_int8_and_quantize_linear_params_match_jax():
     assert _rel_l2(out.numpy(), fp) < 0.02
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_linear_int8_with_bias_matches_jax_and_the_separate_add(dtype):
+    """The bias goes into ``quant_matmul`` (one kernel launch on the card):
+    ``quant_matmul_plain(..., b=)`` equals the plain product followed by the
+    separate add bit for bit, and ``_linear_int8`` with a bias matches the JAX
+    ``_linear_int8``: to rtol 1e-6 in fp32; in bf16 (x and b in bf16, as the
+    engine serves them) equal op by op, and under ``jit`` up to the rows where
+    XLA's reciprocal ``/ 127.0`` moves a tie (ROADMAP, section C)."""
+    rng = np.random.default_rng(11)
+    w = rng.standard_normal((256, 384)).astype(np.float32) * 0.05
+    b = rng.standard_normal((384,)).astype(np.float32)
+    x = rng.standard_normal((3, 40, 256)).astype(np.float32)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16, torch.bfloat16)
+    jq = jm.quantize_linear_params({"w": jnp.asarray(w), "b": jnp.asarray(b)})
+    jq["b"] = jq["b"].astype(jdt)
+    tq_ = tm.quantize_linear_params({"w": torch.as_tensor(w), "b": torch.as_tensor(b)})
+    tq_["b"] = tq_["b"].to(tdt)
+    jx, tx = jnp.asarray(x).astype(jdt), torch.as_tensor(x).to(tdt)
+
+    fused = tq.quant_matmul_plain(tx.reshape(-1, 256), tq_["w_q"], tq_["s_w"], b=tq_["b"], amax_floor=0.0,
+                                  scale_floor=1e-8)
+    separate = tq.quant_matmul_plain(tx.reshape(-1, 256), tq_["w_q"], tq_["s_w"], amax_floor=0.0,
+                                     scale_floor=1e-8) + tq_["b"]
+    assert fused.dtype == tdt and torch.equal(fused, separate)
+    out = tm._linear_int8(tq_, tx)
+    assert out.shape == (3, 40, 384) and out.dtype == tdt
+    assert torch.equal(out.reshape(-1, 384), fused)
+    got = out.float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, np.asarray(jm._linear_int8(jq, jx)), rtol=1e-6, atol=1e-6)
+        return
+    with jax.disable_jit():
+        ref = np.asarray(jm._linear_int8(jq, jx).astype(jnp.float32))
+    np.testing.assert_array_equal(got, ref)
+    jitted = np.asarray(jax.jit(jm._linear_int8)(jq, jx).astype(jnp.float32)).reshape(-1, 384)
+    rows = np.unique(np.argwhere(got.reshape(-1, 384) != jitted)[:, 0])
+    assert len(rows) <= 3 and _rel_l2(got.reshape(-1, 384), jitted) < 2e-3
+
+
+def test_quant_matmul_wrapper_passes_the_bias_to_the_plain_version_on_the_cpu():
+    rng = np.random.default_rng(12)
+    x = torch.as_tensor(rng.standard_normal((20, 64)).astype(np.float32))
+    wq, sw = _quantized_weight(rng, 64, 32)
+    b = torch.as_tensor(rng.standard_normal((32,)).astype(np.float32))
+    out = tq.quant_matmul(x, torch.as_tensor(wq), torch.as_tensor(sw), b=b)
+    assert torch.equal(out, tq.quant_matmul_plain(x, torch.as_tensor(wq), torch.as_tensor(sw)) + b)
+
+
 @pytest.fixture(scope="module")
 def tiny():
     cfg = jd.DiTConfig(**TINY)
