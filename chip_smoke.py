@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py               # every phase; needs one CUDA card
     python3 chip_smoke.py --kernels-only
+    python3 chip_smoke.py --serving-only  # the build and phase 12 alone (no result lines)
 
 Phases, each of which fails the run (non-zero exit) on any error:
 
@@ -89,9 +90,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
    solve, ``synthesize_streaming`` against ``synthesize``'s wave, then the
    bench geometry at int8 beside the bf16 figure of the same run, with a
    profile whose library-GEMM launches must drop by exactly the 2640 that
-   moved to quant_matmul, whose elementwise launches must drop by at least
-   the 2640 bias adds fused into it, and whose quant_matmul pre-pass runs
-   once per feed-forward out linear (K 2048, the streamed path);
+   moved to quant_matmul, whose bf16 add launches (PyTorch's
+   ``CUDAFunctor_add<c10::BFloat16>`` kernels, a family of their own in the
+   profile) must drop by exactly the 2640 bias adds fused into it, and
+   whose quant_matmul pre-pass runs once per feed-forward out linear (K
+   2048, the streamed path);
 11. attention-layout ablation (with phase 2): the kernel of the five layouts
    of ``scripts/ablate_attention.py`` at BH 256, N 1024, D 64, bf16, BQ 64 and
    128, zero bias and a -1e9 tail, against its fp32 plain version and the
@@ -101,7 +104,26 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (m16n8k16 equivalents, the kernel's own),
    warps per SM, ``unpacked`` at the pair layouts' occupancy, the shipping
    kernel and SDPA on the same inputs. Its launches must stay 0 through
-   phases 3-10.
+   phases 3-10 and 12;
+12. serving (after phase 10): ``serve/service.py``'s ``ModelService`` loads
+   F5-TTS Base + Vocos from ``.npz`` files written from the seeded weights,
+   bf16, ``batcher="auto"`` (``StepBatcher``, segments of 2 Ralston
+   intervals, the (1024, 8) group warmed), two voices (the demo clip and a
+   synthetic one); requests go through a thread pool as the server's executor
+   sends them: a lone request (its segments must chain), a burst of 8 ~8-s
+   requests of the 1024 bucket (they must share groups) and a request
+   submitted after the burst's first segment (it must join a running solve),
+   a multi-chunk request with a speech edit that joins its group (edit and
+   synthesis rows in one solve), a streamed request; every wave finite,
+   non-zero and of the planned length. Launch counts (set to 0 after the
+   load) must equal 22 attention + 22 RoPE pre-pass + 1 conv-pos per DiT
+   forward, forwards counted from the batcher's segments (k x 2 each) and the
+   window solves. One row through ``StepBatcher`` against the window solve
+   from the same seed; host dispatch and device time of one (1024, 8)
+   segment, with a profile; device memory after unload -> load back at its
+   first level; the same burst on the window batcher at fetch pipelining
+   depth 3 and 1: burst wall time, p50/max latency, the late request's
+   latency.
 
 The last lines are the card's name and power limit, one ``{"kernels": [...]}``
 JSON line and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -1052,18 +1074,307 @@ def int8_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card: str, launches: 
           "the six linears of every block did not all move from library GEMMs to quant_matmul")
     # the bias of those linears is added inside quant_matmul: the bf16 path's separate adds are gone; the
     # feed-forward out linear (K 2048) takes the streamed path, whose pre-pass is a launch of its own
-    ew_bf16, ew_int8 = (bench["launch_counts"].get("elementwise", 0) for bench in (bf16_bench, int8_bench))
+    # (counted by the bf16 add kernel itself: the profile's count of small elementwise launches, aranges,
+    # compares, copies, varies by a few from run to run)
+    add_bf16, add_int8 = (bench["launch_counts"].get("bf16_add", 0) for bench in (bf16_bench, int8_bench))
     prepass, want_prepass = int8_bench["launch_counts"].get("quant_prepass", 0), dit_cfg.depth * 20
-    log(f"elementwise launches per solve: int8 {ew_int8} against bf16 {ew_bf16}: {ew_bf16 - ew_int8} fewer (the "
-        f"{moved} bias adds of the six block linears are fused into quant_matmul); quant_matmul pre-pass launches "
-        f"{prepass} (want {want_prepass}: feed-forward out, K 2048, takes the streamed path)")
-    check(ew_bf16 - ew_int8 >= moved and prepass == want_prepass,
-          "the int8 solve's elementwise launches did not drop by the fused bias adds, or the pre-pass count is off")
+    log(f"bf16 add launches per solve (bias and residual adds): int8 {add_int8} against bf16 {add_bf16}: "
+        f"{add_bf16 - add_int8} fewer (want exactly the {moved} bias adds of the six block linears, fused into "
+        f"quant_matmul); quant_matmul pre-pass launches {prepass} (want {want_prepass}: feed-forward out, K 2048, "
+        f"takes the streamed path)")
+    check(add_bf16 - add_int8 == moved and prepass == want_prepass,
+          "the int8 solve's bf16 add launches did not drop by exactly the fused bias adds, or the pre-pass count is off")
+
+
+SERVING_SEGMENT_INTERVALS = 2  # ODE intervals per step-batcher segment (the serving default)
+SERVING_MEM_TOL = 0.05  # device memory after unload -> load, relative to the first load
+
+
+def _serving_texts(engine, ref, ref_text: str):
+    """A text of about 8 s for ``ref`` whose single row lands in the
+    1024-frame bucket, and a longer one that chunks into 2-3 rows of it."""
+    words = ("the quick brown fox jumps over a lazy dog while the river runs past the old mill and "
+             "children sing in the square as the evening light falls on the hills").split()
+
+    def rows_of(text):
+        return engine.prepare_request(text, ref, 24000, ref_text).rows
+
+    text = ""
+    for w in words * 4:
+        longer = (text + " " + w).strip()
+        rows = rows_of(longer + ".")
+        if len(rows) > 1 or rows[0].duration > 960:  # room for the other voice's speech rate
+            break
+        text = longer
+    one = text + "."
+    many = " ".join([one.rstrip(".") + ","] * 2 + [one])
+    for _ in range(3):
+        if len(rows_of(many)) in (2, 3):
+            break
+        many = many.rsplit(",", 1)[0] + "."
+    return one, many
+
+
+def serving_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card: str, launches: dict) -> None:
+    """``serve/service.py``'s ``ModelService`` at F5-TTS Base + Vocos from
+    ``.npz`` checkpoints, on ``StepBatcher`` (batcher auto, segments of 2
+    intervals), driven through a thread pool as the server's executor
+    drives it; then the same burst on the window batcher."""
+    import shutil
+    import tempfile
+
+    from f5tts_tpu_torch.audio.io import write_wav
+    from f5tts_tpu_torch.models.convert import save_params_npz
+    from f5tts_tpu_torch.serve.service import ModelService
+    from f5tts_tpu_torch.utils.config import Settings
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="f5_serving_")
+    try:
+        save_params_npz(os.path.join(tmp, "f5_base.npz"), dit_np)
+        save_params_npz(os.path.join(tmp, "vocos.npz"), voc_np)
+        voices = os.path.join(tmp, "voices")
+        os.makedirs(voices)
+        shutil.copy(os.path.join(HERE, "examples", "voices", "demo_voice.wav"), voices)
+        with open(os.path.join(voices, "demo_voice.txt"), "w", encoding="utf-8") as f:
+            f.write("A short reference clip of the demo voice.")
+        write_wav(os.path.join(voices, "narrator.wav"), synthetic_ref(2.5, 130.0, 21))
+        with open(os.path.join(voices, "narrator.txt"), "w", encoding="utf-8") as f:
+            f.write("The narrator reads this sentence calmly.")
+        settings = Settings(device="cuda", dtype="bfloat16", batcher="auto",
+                            batcher_segment_intervals=SERVING_SEGMENT_INTERVALS, warmup_buckets="1024",
+                            warmup_batches="8", tts_ckpt=os.path.join(tmp, "f5_base.npz"),
+                            tts_vocab=os.path.join(HERE, "examples", "vocab.txt"),
+                            vocoder_ckpt=os.path.join(tmp, "vocos.npz"), voices_dir=voices)
+        service = ModelService(settings)
+        # the base level: without earlier phases' cached blocks and cuBLAS workspaces, which unload also drops
+        torch.cuda.synchronize()
+        import gc
+
+        gc.collect()
+        clear_workspaces = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+        if clear_workspaces is not None:
+            clear_workspaces()
+        torch.cuda.empty_cache()
+        mem_base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        service.load()
+        torch.cuda.synchronize()
+        mem_loaded = torch.cuda.memory_allocated()
+        log(f"serving on {card}: ModelService loaded F5-TTS Base + Vocos from .npz with StepBatcher (auto, k "
+            f"{SERVING_SEGMENT_INTERVALS}) and warmed the (1024, 8) group in {time.perf_counter() - t0:.1f} s; "
+            f"{mem_loaded / 2**30:.3f} GiB allocated")
+        _serving_requests(service, card, launches, mem_base, mem_loaded)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"serving phase took {time.perf_counter() - t_phase:.1f} s on {card}")
+
+
+def _serving_requests(service, card: str, launches: dict, mem_base: int, mem_loaded: int) -> None:
+    import dataclasses
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from f5tts_tpu_torch.audio.io import read_wav
+    from f5tts_tpu_torch.audio.preprocess import ensure_sentence_punctuation
+    from f5tts_tpu_torch.engine.step_batcher import SolveGroup, StepBatcher, _Job
+    from f5tts_tpu_torch.ops.kernels.conv_pos import conv_pos
+    from f5tts_tpu_torch.ops.kernels.flash_attention import flash_attention, rope_rows
+    from f5tts_tpu_torch.serve.schemas import SpeechRequest
+
+    engine, batcher = service.engine, service.batcher
+
+    def say(msg: str) -> None:  # every number beside the card's name and power limit
+        log(f"serving on {card}: {msg}")
+
+    check(isinstance(batcher, StepBatcher) and batcher.adaptive, f"batcher=auto did not serve on StepBatcher: {batcher}")
+    k = batcher.progs.k
+    solves = _count_solves(engine)  # window solves of this engine: streaming and the equality check
+    wrappers = {"flash_attention": flash_attention, "rope_rows": rope_rows, "conv_pos": conv_pos}
+    per_forward = {"flash_attention": engine.dit_cfg.depth, "rope_rows": engine.dit_cfg.depth, "conv_pos": 1}
+    for w in wrappers.values():
+        w.launches = 0
+    stats0 = dict(batcher.stats)
+    pool = ThreadPoolExecutor(max_workers=12, thread_name_prefix="serving")
+    voices = sorted(service.voices)
+    ref, ref_sr, ref_text = service.voices[voices[0]]
+    one, many = _serving_texts(engine, ref, ensure_sentence_punctuation(ref_text))
+
+    def planned(text: str, voice: str, **kw) -> int:
+        """Samples of the request's wave, planned by the engine being served."""
+        e, (a, sr_, rt) = service.engine, service.voices[voice]
+        return planned_length(e, e.prepare_request(text, a, sr_, ensure_sentence_punctuation(rt), **kw))
+
+    def request(text: str, voice: str, seed: int, **kw):
+        """One request as the speech route runs it; (wave, seconds from submit to the result)."""
+        t_req = time.perf_counter()
+        body = service.synthesize_sync(SpeechRequest(text=text, voice=voice, seed=seed, **kw))
+        dt = time.perf_counter() - t_req
+        wave, sr_ = read_wav(body)
+        want = planned(text, voice, seed=seed)
+        check(sr_ == 24000 and len(wave) == want, f"request {text[:30]!r}: {len(wave)} samples, want {want}")
+        check(bool(np.isfinite(wave).all()) and float(np.abs(wave).max()) > 0, f"request {text[:30]!r}: wave not finite")
+        return wave, dt
+
+    def delta(key):
+        return batcher.stats.get(key, 0) - stats0.get(key, 0)
+
+    # 1. a lone request: its solve chains its segments
+    wave, dt = request(one, voices[0], 1)
+    say(f"lone request {len(wave) / 24000:.2f} s of audio in {dt:.3f} s; chained segments "
+        f"{delta('chained_segments')}, segments {delta('segments')}")
+    check(delta("chained_segments") >= 1, f"the lone request chained no segments: {batcher.stats}")
+
+    # 2. a burst of 8 ~8-s requests from both voices (one of them 1 segment long, so a slot frees
+    #    early), 3. a request submitted after the burst's first segment
+    def burst(svc, late_at: float | None):
+        b = svc.batcher
+        reqs = [(one, voices[i % 2], 10 + i, {"nfe_step": 4} if i == 7 else {}) for i in range(8)]
+        t_b = time.perf_counter()
+        futs = [pool.submit(request, text, v, seed, **kw) for text, v, seed, kw in reqs]
+        if late_at is None:  # step: as soon as a running group of the bucket has a free slot
+            deadline = time.perf_counter() + 20
+            while time.perf_counter() < deadline and not any(
+                    g.nb == 1024 and g.age_segments >= 1 and g.free_slots() and g.active() for g in list(b._groups)):
+                time.sleep(0.001)
+        else:
+            time.sleep(max(late_at - (time.perf_counter() - t_b), 0))
+        t_late = time.perf_counter() - t_b
+        late = pool.submit(request, one, voices[1], 99)
+        lat = [f.result()[1] for f in futs]
+        late_lat = late.result()[1]
+        return time.perf_counter() - t_b, lat, late_lat, t_late
+
+    g0, j0 = delta("groups_started"), delta("mid_solve_joins")
+    wall, lat, late_lat, t_late = burst(service, None)
+    step_burst = (wall, lat, late_lat)
+    say(f"burst of 8 + 1 late request on StepBatcher: groups started {delta('groups_started') - g0}, "
+        f"mid-solve joins {delta('mid_solve_joins') - j0}, late request submitted {t_late:.3f} s after the burst")
+    check(delta("groups_started") - g0 < 9, "the burst's rows shared no group")
+    check(delta("mid_solve_joins") - j0 >= 1, f"the late request did not join a running solve: {batcher.stats}")
+
+    # 4. a multi-chunk request, and a speech edit that joins its group mid-solve
+    edit_audio = synthetic_ref(10.0, 150.0, 22)
+    shared = threading.Event()
+
+    def watch():
+        while not shared.is_set() and watching[0]:
+            for g in list(batcher._groups):
+                rows = [s.job.row for s in list(g.slots) if s is not None]
+                if any(r.edit_mask is not None for r in rows) and any(r.edit_mask is None for r in rows):
+                    shared.set()
+            time.sleep(0.0005)
+
+    watching = [True]
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    multi = pool.submit(request, many, voices[0], 30)
+    deadline = time.perf_counter() + 20
+    while time.perf_counter() < deadline and not any(g.age_segments >= 1 and g.active() for g in list(batcher._groups)):
+        time.sleep(0.001)
+    edit = pool.submit(service.speech_edit_sync, edit_audio, 24000, "a new sentence replaces the middle of this clip.",
+                       [(4.0, 6.0)], None, seed=31)
+    wave_m, dt_m = multi.result()
+    wave_e, sr_e = edit.result()
+    watching[0] = False
+    watcher.join()
+    n_rows = len(engine.prepare_request(many, ref, ref_sr, ref_text).rows)
+    say(f"multi-chunk request ({n_rows} rows) {len(wave_m) / 24000:.2f} s in {dt_m:.3f} s; speech edit of "
+        f"one 2-s span of a 10-s clip: {len(wave_e) / sr_e:.2f} s, shared a solve group with synthesis rows: "
+        f"{shared.is_set()}")
+    check(n_rows > 1, "the multi-chunk request planned one row")
+    check(sr_e == 24000 and bool(np.isfinite(wave_e).all()) and float(np.abs(wave_e).max()) > 0,
+          "speech edit: wave not finite/non-zero")
+    check(abs(len(wave_e) - len(edit_audio)) <= 2 * 256, f"speech edit returned {len(wave_e)} samples for {len(edit_audio)}")
+    check(shared.is_set(), "the edit row never shared a solve group with synthesis rows")
+
+    # 5. a streamed request
+    sr_s, segments = service.stream_segments(SpeechRequest(text=many, voice=voices[1], seed=40))
+    t_s = time.perf_counter()
+    parts = list(segments())
+    del segments  # it holds the engine, which unload below must be able to free
+    stream = np.concatenate(parts)
+    want = planned(many, voices[1], seed=40)
+    say(f"streamed request, {len(parts)} segments of {[len(x_) for x_ in parts]} samples in "
+        f"{time.perf_counter() - t_s:.3f} s, {len(stream)} samples (want {want})")
+    check(sr_s == 24000 and len(stream) == want and len(parts) > 1 and bool(np.isfinite(stream).all()),
+          "streamed request: wrong length or not finite")
+
+    # equality: one row through StepBatcher and through the window solve, same seed
+    a, s_, rt = service.voices[voices[0]]
+    row = engine.prepare_request(one, a, s_, ensure_sentence_punctuation(rt), seed=50).rows[0]
+    step_wave = batcher.submit(row).result(timeout=600)[0]
+    window_wave = engine.synthesize_rows([row])[0][0]
+    rel_rms = float(np.sqrt(np.mean((step_wave - window_wave) ** 2)) / np.sqrt(np.mean(window_wave**2)))
+    say(f"one row through StepBatcher against the window solve, same seed: RMS of the difference over the "
+        f"wave's RMS {rel_rms:.3e} (tol {STREAM_REL_RMS}), max abs {float(np.abs(step_wave - window_wave).max()):.3e}")
+    check(step_wave.shape == window_wave.shape and rel_rms <= STREAM_REL_RMS, f"step row differs from window row: {rel_rms}")
+
+    # launch counts: k x 2 forwards per dispatched segment (Ralston), plus each window solve's forwards
+    torch.cuda.synchronize()
+    got = {name: w.launches for name, w in wrappers.items()}
+    seg_forwards = delta("segments") * k * 2
+    forwards = seg_forwards + sum(f for f, _ in solves)
+    want = {name: per_forward[name] * forwards for name in wrappers}
+    say(f"{delta('segments')} segments ({delta('chained_segments')} chained) = {seg_forwards} DiT forwards, "
+        f"window solves (forwards, rows) {list(solves)}; launches {got} (want {want}); batcher stats {batcher.stats}")
+    check(got == want and forwards > 0, f"serving launch counts {got}, want {want}")
+    for name in wrappers:
+        launches[name]["serving"] = got[name]
+
+    # one segment of a full (1024, 8) group: host dispatch time against device time
+    g = SolveGroup(batcher.progs, 1024, 8)
+    for i in range(8):
+        g.admit(_Job(dataclasses.replace(row, seed=60 + i)))
+    g.dispatch_segment()  # metadata upload and text embedding happen once per admission
+    torch.cuda.synchronize()
+    host, dev_ms = [], []
+    for _ in range(3):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        g.dispatch_segment()
+        host.append((time.perf_counter() - t0) * 1e3)
+        e1.record()
+        e1.synchronize()
+        dev_ms.append(e0.elapsed_time(e1))
+    say(f"one segment of a (1024, 8) group ({k} Ralston intervals = {2 * k} fused 16-row forwards): "
+        f"host dispatch {[round(x, 2) for x in host]} ms, device span {[round(x, 2) for x in dev_ms]} ms")
+    profile_by_family(f"one step-batcher segment (1024 x 8 rows) on {card}", lambda: (g.dispatch_segment(), torch.cuda.synchronize()),
+                      BENCH_FAMILIES, wall_plain_ms=statistics.median(dev_ms))
+    del g
+    engine = batcher = None  # the service's unload must be able to free the model
+
+    # unload -> load: the device memory comes back to its level
+    service.unload()
+    mem_unloaded = torch.cuda.memory_allocated()
+    service.load()
+    torch.cuda.synchronize()
+    mem_reloaded = torch.cuda.memory_allocated()
+    model = mem_loaded - mem_base
+    say(f"device memory before load {mem_base / 2**30:.3f} GiB, after load {mem_loaded / 2**30:.3f} GiB, "
+        f"after unload {mem_unloaded / 2**30:.3f} GiB, after load again {mem_reloaded / 2**30:.3f} GiB")
+    check(abs(mem_reloaded - mem_loaded) <= SERVING_MEM_TOL * mem_loaded, "device memory leaked across unload -> load")
+    check(mem_unloaded - mem_base <= SERVING_MEM_TOL * model, "unload kept the model's device memory")
+
+    # the same burst on the window batcher, fetch pipelining depth 3 then 1
+    results = {"step": step_burst}
+    service.swap(lambda: setattr(service.settings, "batcher", "window"))
+    for depth in (3, 1):
+        service.engine.cfg = dataclasses.replace(service.engine.cfg, fetch_pipeline_depth=depth)
+        wall, lat, late_lat, _ = burst(service, t_late)
+        results[f"window, fetch depth {depth}"] = (wall, lat, late_lat)
+    for name, (wall, lat, late_lat) in results.items():
+        say(f"burst on {name}: 8 requests + 1 late in {wall:.3f} s; request latency p50 "
+            f"{statistics.median(lat):.3f} s, max {max(lat):.3f} s; late request (submitted after {t_late:.3f} s) "
+            f"{late_lat:.3f} s")
+    service.unload()
+    pool.shutdown()
 
 
 BENCH_FAMILIES = (("flash_attention", ("flash_wgmma", "flash_fwd")), ("rope_rows", ("rope_rows",)),
                   ("conv_pos", ("conv_pair", "conv_generic")), ("quant_matmul", ("quant_matmul_kernel",)),
-                  ("quant_prepass", ("quantize_rows_kernel",)))
+                  ("quant_prepass", ("quantize_rows_kernel",)), ("bf16_add", ("CUDAFunctor_add<c10::BFloat16>",)))
 
 
 def bench_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card: str, quantization: str = "none") -> dict:
@@ -1592,6 +1903,8 @@ def parler_phase(dev, card: str, launches: dict) -> None:
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--serving-only", action="store_true",
+                    help="build the kernels and run only the serving phase (no result lines)")
     ap.add_argument("--kernels-only", action="store_true",
                     help="build and check the kernels (and run the ablation), skip the engine, bench, int8, "
                          "training and Parler phases")
@@ -1618,6 +1931,19 @@ def main():
 
     from f5tts_tpu_torch.ops.kernels.ablate_attention import ablate_attention
 
+    if args.serving_only:
+        from f5tts_tpu_torch.models.convert import init_dit_numpy, init_vocos_numpy
+        from f5tts_tpu_torch.models.dit import DiTConfig
+        from f5tts_tpu_torch.models.vocos import VocosConfig
+        from f5tts_tpu_torch.text.tokenizer import Tokenizer
+
+        tok = Tokenizer.from_file(os.path.join(HERE, "examples", "vocab.txt"))
+        dit_cfg, voc_cfg = DiTConfig(text_num_embeds=tok.vocab_size), VocosConfig()
+        launches = {name: {} for name in ("flash_attention", "rope_rows", "conv_pos")}
+        serving_phase(dev, dit_cfg, voc_cfg, init_dit_numpy(dit_cfg, seed=0), init_vocos_numpy(voc_cfg, seed=1), tok,
+                      card, launches)
+        log(f"serving launches {launches}")
+        return
     kernels = [attention_phase(dev), conv_phase(dev), *train_kernel_phase(dev), decode_attention_phase(dev),
                quant_matmul_phase(dev), ablate_attention_phase(dev)]
     launches = {k["name"]: {} for k in kernels}  # kernel -> path -> launches, each path's counts set to 0 before it
@@ -1635,10 +1961,11 @@ def main():
         engine_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, launches)
         bf16_bench = bench_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card)
         int8_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card, launches, bf16_bench)
+        serving_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card, launches)
         del dit_np, voc_np
         train_phase(dev, dit_cfg, TRAIN_SHAPES, tok, card, launches)  # F5-TTS Base, dropout 0.1, kernels
         parler_phase(dev, card, launches)  # indic-parler-tts width and depth, random weights
-        log(f"ablate_attention launches through the engine, int8, training and Parler phases: "
+        log(f"ablate_attention launches through the engine, int8, serving, training and Parler phases: "
             f"{ablate_attention.launches} (want 0)")
         check(ablate_attention.launches == 0, "the ablation kernel ran on a serving or training path")
     for k in kernels:

@@ -1,8 +1,8 @@
 """PyTorch / CUDA port of ``f5tts_tpu`` for NVIDIA Hopper (H100).
 
 The JAX package ``f5tts_tpu`` stays the reference; this package mirrors its
-module names (``ops/``, ``models/``, ``sampling/``, ``engine/``, ``cli/``) so
-each counterpart is easy to find. It imports ``torch`` and never ``jax`` or
+module names (``ops/``, ``models/``, ``sampling/``, ``engine/``, ``serve/``,
+``cli/``) so each counterpart is easy to find. It imports ``torch`` and never ``jax`` or
 ``f5tts_tpu``.
 
 - Entry points run on ``cuda`` unless the caller passes ``device="cpu"``

@@ -1,5 +1,5 @@
 """WAV read/write on numpy float32 (counterpart of ``f5tts_tpu/audio/io.py``):
-int16 PCM out, int16/int32/uint8/float in, channel-mean downmix."""
+int16 (or float32) PCM out, int16/int32/uint8/float in, channel-mean downmix."""
 
 from __future__ import annotations
 
@@ -32,5 +32,20 @@ def encode_pcm16(audio: np.ndarray) -> np.ndarray:
     return np.rint(np.clip(np.asarray(audio, np.float32), -1.0, 1.0) * np.float32(32767.0)).astype(np.int16)
 
 
-def write_wav(path, audio: np.ndarray, sample_rate: int = 24000) -> None:
-    wavfile.write(path, sample_rate, encode_pcm16(audio))
+def _encode(audio: np.ndarray, subtype: str) -> np.ndarray:
+    if subtype == "int16":
+        return encode_pcm16(audio)
+    if subtype == "float32":
+        return np.asarray(audio, dtype=np.float32)
+    raise ValueError(f"unknown subtype {subtype!r}")
+
+
+def write_wav(path, audio: np.ndarray, sample_rate: int = 24000, subtype: str = "int16") -> None:
+    wavfile.write(path, sample_rate, _encode(audio, subtype))
+
+
+def wav_bytes(audio: np.ndarray, sample_rate: int = 24000, subtype: str = "int16") -> bytes:
+    """A whole WAV file in memory (the speech routes' response body)."""
+    buf = io.BytesIO()
+    wavfile.write(buf, sample_rate, _encode(audio, subtype))
+    return buf.getvalue()

@@ -19,30 +19,37 @@ import sys
 import numpy as np
 
 
-def build_argparser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser("f5tts_tpu_torch.cli.infer", description="F5-TTS inference (PyTorch / CUDA)")
+def add_engine_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The model, sampler and device flags ``build_engine`` reads (shared
+    with ``cli/speech_edit.py``)."""
     p.add_argument("-m", "--model", default="F5TTS_Base", choices=["F5TTS_Base", "F5TTS_Small"])
     p.add_argument("-p", "--ckpt-file", default="", help="DiT params .npz (f5tpu-convert output)")
     p.add_argument("--vocoder-ckpt", default="", help="Vocos params .npz (f5tpu-convert output)")
     p.add_argument("-v", "--vocab-file", default="", help="vocab.txt (one char per line)")
     p.add_argument("--demo-tiny", action="store_true", help="random-init tiny model (no checkpoint)")
     p.add_argument("--random-init", action="store_true", help="random-init at the real --model geometry")
-    p.add_argument("-r", "--ref-audio", default="", help="reference audio wav")
-    p.add_argument("-s", "--ref-text", default="", help="reference transcript")
-    p.add_argument("-t", "--gen-text", default="", help="text to synthesize")
-    p.add_argument("-o", "--output", default="out.wav")
     p.add_argument("--nfe", type=int, default=0, help="model evals per guidance branch; 0 = method default")
     p.add_argument("--method", default="ralston", choices=["euler", "midpoint", "heun", "ralston", "rk4"])
     p.add_argument("--cfg-strength", type=float, default=2.0)
     p.add_argument("--sway", type=float, default=-1.0)
     p.add_argument("--speed", type=float, default=1.0)
     p.add_argument("--cross-fade", type=float, default=0.15)
+    p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    return p
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser("f5tts_tpu_torch.cli.infer", description="F5-TTS inference (PyTorch / CUDA)")
+    add_engine_args(p)
+    p.add_argument("-r", "--ref-audio", default="", help="reference audio wav")
+    p.add_argument("-s", "--ref-text", default="", help="reference transcript")
+    p.add_argument("-t", "--gen-text", default="", help="text to synthesize")
+    p.add_argument("-o", "--output", default="out.wav")
     p.add_argument("--seed", type=int, default=None, help="noise seed")
     p.add_argument("--quality", default="default", choices=["default", "strict"],
                    help="strict: estimate each row's solver error and re-solve rows over the engine's threshold "
                         "with the exact reference recipe (euler, 32 steps)")
-    p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
-    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return p
 
 

@@ -14,14 +14,22 @@ clip -> waveform.
 - **Strict quality.** Rows with ``quality="strict"`` solve with the sampler's
   embedded error estimate; a row whose estimate exceeds ``strict_threshold``
   is solved again with the exact reference recipe (euler, 32 steps).
+- **Speech edit.** An edit row (``prepare_edit_row``) carries an ``edit_mask``
+  (frames to keep) and returns the whole utterance from frame 0; it shares
+  its bucket's solve with synthesis rows.
+- **Dispatch/fetch pipelining.** ``synthesize_rows`` queues up to
+  ``fetch_pipeline_depth`` solves on the card before it copies the oldest
+  one's results to the host: a CUDA event per solve and a non-blocking copy
+  into pinned memory, so the host's unpacking of one solve overlaps the card's
+  next one.
 
 The engine keeps a bf16 serving copy of the parameters and runs the DiT with
 ``attn_impl="flash"`` and ``conv_pos_impl="fused"``: on a GPU those are the
 hand-written CUDA kernels, on the CPU their plain versions. With
 ``quantization="int8"`` the blocks' six linears are quantized after the dtype
 cast (W8A8, ``models/dit.py:quantize_dit_params``) and run through the
-``quant_matmul`` kernel. Edit rows, the BigVGAN vocoder, dispatch/fetch
-pipelining and multi-device serving are not ported yet.
+``quant_matmul`` kernel. The BigVGAN vocoder and multi-device serving are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -42,7 +50,8 @@ from f5tts_tpu_torch.sampling.euler import (EVALS_PER_STEP, SamplerConfig, defau
                                             sample_cfm, serving_default_sampler)
 from f5tts_tpu_torch.text.chunker import chunk_text, chunk_text_packed, duration_frames, max_chars_for_ref
 from f5tts_tpu_torch.text.tokenizer import Tokenizer
-from f5tts_tpu_torch.utils.device import resolve_device
+from f5tts_tpu_torch.utils.device import resolve_device, to_device
+from f5tts_tpu_torch.utils.profiling import GLOBAL_TIMER
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -76,12 +85,17 @@ class EngineConfig:
     strict_threshold: float = 0.12
     min_chunk_gen_frames: int = 256
     chunk_pack_words: bool = True
+    # solves queued on the card before the oldest one's results are copied to
+    # the host by synthesize_rows; bounds the extra device buffers to O(depth)
+    fetch_pipeline_depth: int = 3
 
     def __post_init__(self):
         if self.compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}, got {self.compute_dtype!r}")
         if self.quantization not in ("none", "int8"):
             raise ValueError(f"quantization must be 'none' or 'int8', got {self.quantization!r}")
+        if self.fetch_pipeline_depth < 1:
+            raise ValueError("fetch_pipeline_depth must be >= 1")
         # drop caps of absent buckets and snap each cap down to a batch bucket
         caps = []
         for nb, cap in self.solve_batch_caps:
@@ -101,15 +115,21 @@ def _bucket(v: int, buckets: tuple[int, ...]) -> int:
 
 @dataclass
 class RowSpec:
-    """One utterance chunk to synthesize: its own reference voice and duration."""
+    """One utterance chunk to synthesize: its own reference voice and duration.
 
-    text: str  # ref_text + gen chunk
+    With ``edit_mask`` set it is a speech-edit row: ``cond_mel`` is the whole
+    edited utterance (``ref_frames == duration``), ``edit_mask`` marks the
+    frames kept verbatim (False = regenerate), and the result covers the whole
+    utterance from frame 0 instead of the generated tail."""
+
+    text: str  # ref_text + gen chunk (edit rows: the full target text)
     cond_mel: np.ndarray  # (ref_frames, n_mels)
     ref_frames: int
     duration: int  # total frames incl. ref
     steps: int = 32
     cfg_strength: float = 2.0
     seed: int | None = None
+    edit_mask: np.ndarray | None = None  # (duration,) bool; None = synthesis row
     quality: str = "default"  # "default" | "strict" (estimate, escalate past the threshold)
 
 
@@ -277,13 +297,69 @@ class TTSEngine:
         out = self.synthesize_rows(rows)
         return [w for w, _ in out], [m_ for _, m_ in out]
 
-    def warmup(self, buckets: list[tuple[int, int]] | None = None, *, nfe_step: int | None = None,
-               cfg_strength: float | None = None) -> None:
-        """Pay the first-use costs before the first request: build and load
-        the engine's CUDA kernels (on a GPU) and run each (duration, batch)
-        bucket's program once. ``nfe_step`` counts model evals per guidance
-        branch, as in ``prepare_request``. There is nothing to compile: eager
-        PyTorch runs any shape, so this only warms allocator and library state."""
+    def speech_edit(self, audio: np.ndarray, sr: int, target_text: str, parts_to_edit: list[tuple[float, float]],
+                    fix_durations: list[float] | None = None, *, steps: int | None = None,
+                    cfg_strength: float | None = None, seed: int | None = None) -> tuple[np.ndarray, int, np.ndarray]:
+        """Regenerate the given time spans (seconds) so the utterance says
+        ``target_text``; frames outside them are kept verbatim (the sampler's
+        ``edit_mask``). ``fix_durations`` gives the spans new lengths: the
+        resized signal is what conditions the solve. Returns (wave, 24000,
+        mel) of the whole utterance."""
+        row, rms = self.prepare_edit_row(audio, sr, target_text, parts_to_edit, fix_durations,
+                                         steps=steps, cfg_strength=cfg_strength, seed=seed)
+        wave, gen_mel = self.synthesize_rows([row])[0]
+        return self.finalize_edit(row, rms, wave, gen_mel)
+
+    def prepare_edit_row(self, audio: np.ndarray, sr: int, target_text: str,
+                         parts_to_edit: list[tuple[float, float]], fix_durations: list[float] | None = None, *,
+                         steps: int | None = None, cfg_strength: float | None = None,
+                         seed: int | None = None) -> tuple[RowSpec, float]:
+        """Host-side edit preprocessing -> a batchable edit ``RowSpec`` and the
+        clip's original RMS (for ``finalize_edit``). ``steps`` counts model
+        evals per guidance branch, as ``prepare_request``'s ``nfe_step``."""
+        cfg = self.cfg
+        hop = cfg.mel.hop_length
+        steps = nfe_to_steps(steps, cfg.sampler.method) if steps is not None else cfg.sampler.steps
+        guidance = cfg_strength if cfg_strength is not None else cfg.sampler.cfg_strength
+        if audio.ndim == 2:
+            audio = audio.mean(axis=0)
+        audio, rms = normalize_rms(audio, cfg.target_rms)
+        if sr != TARGET_SR:
+            audio = resample(audio, sr, TARGET_SR)
+
+        fixes = list(fix_durations) if fix_durations else None
+        pieces, mask_frames = [], []
+        offset = 0.0
+        for start, end in parts_to_edit:
+            part_dur = (end - start) if fixes is None else fixes.pop(0)
+            keep = audio[round(offset * TARGET_SR) : round(start * TARGET_SR)]
+            pieces += [keep, np.zeros(round(part_dur * TARGET_SR), np.float32)]
+            mask_frames += [np.ones(round((start - offset) * TARGET_SR / hop), bool),
+                            np.zeros(round(part_dur * TARGET_SR / hop), bool)]
+            offset = end
+        pieces.append(audio[round(offset * TARGET_SR) :])
+        edited = np.concatenate(pieces)
+        n_frames = len(edited) // hop
+        edit_mask = np.concatenate(mask_frames)
+        edit_mask = np.pad(edit_mask, (0, max(n_frames + 1 - len(edit_mask), 0)), constant_values=True)[:n_frames]
+
+        nb = _bucket(min(n_frames, cfg.max_duration), cfg.duration_buckets)
+        n_frames = min(n_frames, nb)  # the bucket clamps the utterance
+        cond_mel = bucketed_log_mel(edited, cfg.mel, device=self.device)[:n_frames]
+        row = RowSpec(text=target_text, cond_mel=cond_mel, ref_frames=n_frames, duration=n_frames, steps=steps,
+                      cfg_strength=guidance,
+                      seed=seed if seed is not None else int(self._host_rng.integers(2**31 - 1)),
+                      edit_mask=edit_mask[:n_frames])
+        return row, rms
+
+    def finalize_edit(self, row: RowSpec, rms: float, wave: np.ndarray,
+                      gen_mel: np.ndarray) -> tuple[np.ndarray, int, np.ndarray]:
+        if rms < self.cfg.target_rms:
+            wave = wave * rms / self.cfg.target_rms
+        return wave, TARGET_SR, gen_mel
+
+    def load_kernels(self) -> None:
+        """Build and load the CUDA kernels this engine launches (on a GPU)."""
         if self.device.type == "cuda":
             from f5tts_tpu_torch.ops.kernels import _build
 
@@ -291,6 +367,15 @@ class TTSEngine:
             _build.build(names)
             for name in names:
                 _build.load(name)
+
+    def warmup(self, buckets: list[tuple[int, int]] | None = None, *, nfe_step: int | None = None,
+               cfg_strength: float | None = None) -> None:
+        """Pay the first-use costs before the first request: build and load
+        the engine's CUDA kernels (on a GPU) and run each (duration, batch)
+        bucket's program once. ``nfe_step`` counts model evals per guidance
+        branch, as in ``prepare_request``. There is nothing to compile: eager
+        PyTorch runs any shape, so this only warms allocator and library state."""
+        self.load_kernels()
         steps = nfe_to_steps(nfe_step, self.cfg.sampler.method) if nfe_step is not None else self.cfg.sampler.steps
         guidance = cfg_strength if cfg_strength is not None else self.cfg.sampler.cfg_strength
         caps = dict(self.cfg.solve_batch_caps)
@@ -328,13 +413,17 @@ class TTSEngine:
     @torch.no_grad()
     def bucket_program(self, cond: torch.Tensor, cond_lens: torch.Tensor, text: torch.Tensor,
                        duration: torch.Tensor, seeds=None, *, steps: int, cfg_strength: float,
-                       y0: torch.Tensor | None = None, estimate: bool = False, recipe: bool = False):
+                       y0: torch.Tensor | None = None, estimate: bool = False, recipe: bool = False,
+                       edit_mask: torch.Tensor | None = None, out_start: torch.Tensor | None = None):
         """One bucket's program on device tensors: ``cond (b, n, mel)``,
         ``cond_lens (b,)``, ``text (b, nt)``, ``duration (b,)``, per-row
         ``seeds`` or explicit noise ``y0 (b, n, mel)``. Returns (generated mel
-        rolled to frame 0 and zeroed past each row's generated length, fp32
+        rolled to frame ``out_start`` (default ``cond_lens``: the generated
+        tail) and zeroed past each row's generated length, fp32
         ``(b, n, mel)``; waveform ``(b, (n-1)*hop)`` fp32) and, with
-        ``estimate``, the per-row embedded error ``(b,)``. ``recipe`` solves
+        ``estimate``, the per-row embedded error ``(b,)``. ``edit_mask
+        (b, n)`` bool (False = regenerate) turns rows into edit rows, which
+        pass ``out_start`` 0 to get the whole utterance. ``recipe`` solves
         with the exact reference recipe (euler, 32 steps, sway -1) whatever
         the engine's sampler: the escalation target."""
         n = cond.shape[1]
@@ -344,13 +433,15 @@ class TTSEngine:
             sampler = self.request_sampler(steps, cfg_strength)
         mel_out = sample_cfm(
             self.dit_params, self.dit_cfg, cond=cond, cond_lens=cond_lens, text=text, duration=duration,
-            sampler=sampler, y0=y0, seeds=seeds, compute_dtype=self.compute_dtype, return_error_estimate=estimate)
+            sampler=sampler, y0=y0, seeds=seeds, edit_mask=edit_mask, compute_dtype=self.compute_dtype,
+            return_error_estimate=estimate)
         if estimate:
             mel_out, est = mel_out
+        start = cond_lens if out_start is None else out_start
         frames = torch.arange(n, device=cond.device)
-        idx = (frames[None, :] + cond_lens[:, None]) % n
+        idx = (frames[None, :] + start[:, None]) % n
         gen = torch.gather(mel_out, 1, idx[..., None].expand(-1, -1, mel_out.shape[-1]))
-        gen_len = duration - cond_lens
+        gen_len = duration - start
         gen = torch.where(frames[None, :, None] < gen_len[:, None, None], gen,
                           torch.zeros((), dtype=gen.dtype, device=gen.device))
         wave = vocos_decode(self.vocos_params, gen, self.cfg.vocoder, compute_dtype=self.compute_dtype)
@@ -367,6 +458,8 @@ class TTSEngine:
         cond = np.zeros((bb, nb, cfg.mel.n_mels), np.float32)
         cond_lens = np.empty((bb,), np.int32)
         dur = np.empty((bb,), np.int32)
+        out_start = np.empty((bb,), np.int32)
+        em = np.ones((bb, nb), bool)
         seeds = np.empty((bb,), np.int64)
         for row, i in enumerate(sub):
             r = rows[i]
@@ -374,38 +467,74 @@ class TTSEngine:
             cond[row, :rf] = r.cond_mel[:rf]
             cond_lens[row] = rf
             dur[row] = min(r.duration, nb)
+            if r.edit_mask is None:
+                out_start[row] = rf  # synthesis: the generated tail
+            else:
+                out_start[row] = 0  # edit: the whole utterance
+                em[row, : min(len(r.edit_mask), nb)] = r.edit_mask[:nb]
             seeds[row] = r.seed if r.seed is not None else self._host_rng.integers(2**31 - 1)
         if pad_rows:
-            for a in (cond, cond_lens, dur, seeds):
+            for a in (cond, cond_lens, dur, out_start, em, seeds):
                 a[len(sub):] = a[0]
-        return text_ids, cond, cond_lens, dur, seeds
+        return text_ids, cond, cond_lens, dur, out_start, em, seeds
+
+    def _to_host(self, t: torch.Tensor) -> torch.Tensor:
+        """Start ``t``'s copy to the host: into pinned memory without waiting
+        on CUDA (read it after the solve's event), ``t`` itself on the CPU."""
+        if t.device.type != "cuda":
+            return t
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        return host
 
     def _solve_groups(self, rows: list[RowSpec], groups: dict[tuple, list[int]], *, recipe: bool = False):
         """Run each ``(bucket, steps, guidance) -> row indices`` group in capped
         batched solves. Yields ``(row index, (wave, gen mel), estimate or None)``;
-        a solve estimates when a row of it is strict and the sampler can."""
+        a solve estimates when a row of it is strict, none is an edit row and
+        the sampler can. Up to ``fetch_pipeline_depth`` solves are queued
+        before the oldest one's results are read."""
         cfg = self.cfg
         caps = dict(cfg.solve_batch_caps)
         can_estimate = not recipe and self._supports_estimate()
         dev = self.device
+        in_flight: list[tuple] = []
+
+        def fetch(entry):
+            nb, bb, sub, dur, out_start, host, event = entry
+            with GLOBAL_TIMER.stage(f"{'escalate' if recipe else 'sample_decode'}_n{nb}_b{bb}"):
+                if event is not None:
+                    event.synchronize()
+                gen, wave = host[0].numpy(), host[1].numpy()
+            est = host[2].numpy() if len(host) > 2 else None
+            for row, i in enumerate(sub):
+                gen_len = int(dur[row]) - int(out_start[row])
+                yield (i, (wave[row, : self._wave_samples(gen_len)], gen[row, :gen_len]),
+                       None if est is None else float(est[row]))
+
         for (nb, steps, guidance), idxs in groups.items():
             cap = min(caps.get(nb, cfg.batch_buckets[-1]), cfg.batch_buckets[-1])
             for start in range(0, len(idxs), cap):
                 sub = idxs[start : start + cap]
                 bb = _bucket(len(sub), cfg.batch_buckets)
-                want_est = can_estimate and any(rows[i].quality == "strict" for i in sub)
-                text_ids, cond, cond_lens, dur, seeds = self._pack_group(rows, sub, nb, bb)
+                has_edit = any(rows[i].edit_mask is not None for i in sub)
+                want_est = can_estimate and not has_edit and any(rows[i].quality == "strict" for i in sub)
+                text_ids, cond, cond_lens, dur, out_start, em, seeds = self._pack_group(rows, sub, nb, bb)
+                edit = ({"edit_mask": to_device(torch.from_numpy(em), dev),
+                         "out_start": to_device(torch.from_numpy(out_start), dev)} if has_edit else {})
                 out = self.bucket_program(
-                    torch.as_tensor(cond, device=dev), torch.as_tensor(cond_lens, device=dev),
-                    torch.as_tensor(text_ids, device=dev), torch.as_tensor(dur, device=dev), seeds,
-                    steps=steps, cfg_strength=guidance, estimate=want_est, recipe=recipe)
-                gen, wave = out[0].cpu().numpy(), out[1].cpu().numpy()
-                est = out[2].cpu().numpy() if want_est else None
-                for row, i in enumerate(sub):
-                    gen_len = int(dur[row]) - int(cond_lens[row])
-                    yield (i, (wave[row, : self._wave_samples(gen_len)], gen[row, :gen_len]),
-                           None if est is None else float(est[row]))
-
+                    to_device(torch.from_numpy(cond), dev), to_device(torch.from_numpy(cond_lens), dev),
+                    to_device(torch.from_numpy(text_ids), dev), to_device(torch.from_numpy(dur), dev), seeds,
+                    steps=steps, cfg_strength=guidance, estimate=want_est, recipe=recipe, **edit)
+                host = tuple(self._to_host(t) for t in out)
+                event = None
+                if dev.type == "cuda":
+                    event = torch.cuda.Event()
+                    event.record()
+                in_flight.append((nb, bb, sub, dur, out_start, host, event))
+                if len(in_flight) > cfg.fetch_pipeline_depth:
+                    yield from fetch(in_flight.pop(0))
+        for entry in in_flight:
+            yield from fetch(entry)
     def synthesize_rows(self, rows: list[RowSpec]) -> list[tuple[np.ndarray, np.ndarray]]:
         """Row-level batched synthesis: rows may carry different reference
         voices and durations. Rows group by (duration bucket, steps, cfg); each

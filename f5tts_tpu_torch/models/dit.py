@@ -38,6 +38,14 @@ def _rope_table(n: int, dim_head: int, device: str) -> tuple[torch.Tensor, tuple
     return freqs, cos_sin_of(freqs)
 
 
+@functools.lru_cache(maxsize=16)
+def _text_pos_table(text_dim: int, max_pos: int, device: str) -> torch.Tensor:
+    """The text embedding's absolute sin/cos table on ``device``, made once:
+    uploading it on every embedding would wait for the card's queue to drain
+    (a host sync per solve, and per segment on the step-batched path)."""
+    return torch.as_tensor(precompute_freqs_cis(text_dim, max_pos), device=device)
+
+
 @dataclass(frozen=True)
 class DiTConfig:
     dim: int = 1024
@@ -108,7 +116,7 @@ def text_embed(params, cfg: DiTConfig, text: torch.Tensor, seq_len: int, drop_te
     ids = torch.where(drop_text[:, None], 0, ids)
     h = p["embed"]["w"][ids]
     if p.get("blocks") is not None:
-        table = torch.as_tensor(precompute_freqs_cis(cfg.text_dim, cfg.max_pos)[:seq_len], device=h.device)
+        table = _text_pos_table(cfg.text_dim, cfg.max_pos, str(h.device))[:seq_len]
         h = h + table[None].to(h.dtype)
         for i in range(stack_depth(p["blocks"])):
             h = m.convnext_v2_block(block(p["blocks"], i), h, mask=valid_mask)

@@ -23,6 +23,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 build_logs: dict[str, str] = {}  # kernel name -> nvcc/ptxas output of its last build
 
 
@@ -89,3 +90,11 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _libs:
             _libs[name] = ctypes.CDLL(library_path(name))
         return _libs[name]
+
+
+def count_launch(wrapper, n: int = 1) -> None:
+    """Add ``n`` to ``wrapper.launches``. Request threads, a batcher thread
+    and a side pool launch the same kernels at once, and ``+=`` on an
+    attribute is no atomic step, so every count goes through one lock."""
+    with _count_lock:
+        wrapper.launches += n

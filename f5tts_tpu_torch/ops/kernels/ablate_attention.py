@@ -219,7 +219,7 @@ def ablate_attention(layout: str, bias, q, k, v, bq: int = 64, mma_count=None, m
                                       mma_count.data_ptr() if mma_count is not None else None, stream)
     if err != 0:
         raise RuntimeError(f"ablate_attention kernel launch failed: {lib.f5_error_string(err).decode()}")
-    ablate_attention.launches += 1
+    _build.count_launch(ablate_attention)
     return out
 
 

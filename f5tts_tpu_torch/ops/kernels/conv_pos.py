@@ -95,7 +95,7 @@ def _layer(lib, x, w, b, lens, groups: int, mask_rows: bool) -> torch.Tensor:
     _raise_on(lib, lib.f5_conv_pos_layer(x.data_ptr(), w.data_ptr(), b.data_ptr(), lens.data_ptr(), y.data_ptr(),
                                          bsz, n, c, groups, w.shape[0], int(x.dtype == torch.bfloat16),
                                          int(mask_rows), stream))
-    conv_pos.launches += 1
+    _build.count_launch(conv_pos)
     return y
 
 
@@ -110,7 +110,7 @@ def _pair(lib, x, w1, b1, w2, b2, lens) -> torch.Tensor:
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _raise_on(lib, lib.f5_conv_pos_pair(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
                                         lens.data_ptr(), y.data_ptr(), bsz, n, c, w1.shape[0], stream))
-    conv_pos.launches += 1
+    _build.count_launch(conv_pos)
     return y
 
 

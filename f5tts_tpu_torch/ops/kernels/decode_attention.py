@@ -163,7 +163,7 @@ def decode_attention(q, k_cache, v_cache, bias):
             err = launch()
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: {lib.f5_error_string(err).decode()}")
-    decode_attention.launches += 1
+    _build.count_launch(decode_attention)
     return out
 
 

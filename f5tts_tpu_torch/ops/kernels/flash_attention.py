@@ -120,7 +120,7 @@ def rope_rows(q, k, cos, sin, rope_all_heads: bool) -> torch.Tensor:
     _raise_on(lib, lib.f5_rope_rows(q.data_ptr(), k.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(),
                                     b, h, n, d, 2 if rope_all_heads else 1, *strides(q)[:3],
                                     torch.cuda.current_stream(q.device).cuda_stream))
-    rope_rows.launches += 1
+    _build.count_launch(rope_rows)
     return out
 
 
@@ -165,7 +165,7 @@ def flash_attention(q, k, v, key_mask=None, rope_freqs=None, rope_all_heads: boo
             rotated.data_ptr() if rotated is not None else None,
             b, h, n, d, int(q.dtype == torch.bfloat16), rope_mode, float(d**-0.5), sb, sh, sn,
             torch.cuda.current_stream(q.device).cuda_stream))
-    flash_attention.launches += 1
+    _build.count_launch(flash_attention)
     return out.transpose(1, 2)
 
 

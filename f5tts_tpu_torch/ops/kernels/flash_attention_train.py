@@ -147,7 +147,7 @@ def flash_attention_train_fwd(q, k, v, key_mask=None):
         err = lib.f5_flash_train_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
                                      mask_ptr, b, h, n, d, is_bf16, scale, st, stream)
     _raise_on(lib, err, "flash_attention_train forward")
-    flash_attention_train_fwd.launches += 1
+    _build.count_launch(flash_attention_train_fwd)
     return o.transpose(1, 2), lse
 
 
@@ -174,11 +174,11 @@ def flash_attention_train_bwd(q, k, v, o, lse, do, key_mask=None):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.f5_flash_train_bwd_dq(*ptrs, dq.data_ptr(), mask_ptr, b, h, n, d, is_bf16, scale, st, stream)
         _raise_on(lib, err, "flash_attention_train dQ")
-        flash_attention_train_bwd.launches += 1
+        _build.count_launch(flash_attention_train_bwd)
         err = lib.f5_flash_train_bwd_dkdv(*ptrs, dk.data_ptr(), dv.data_ptr(), mask_ptr, b, h, n, d, is_bf16, scale,
                                           st, stream)
         _raise_on(lib, err, "flash_attention_train dK/dV")
-        flash_attention_train_bwd.launches += 1
+        _build.count_launch(flash_attention_train_bwd)
     return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
 
 

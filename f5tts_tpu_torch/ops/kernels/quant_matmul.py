@@ -264,7 +264,7 @@ def quant_matmul(x, w_q, s_w, *, w_qt=None, b=None, amax_floor: float = 1e-6, sc
     if p is None:
         p = _checked[signature] = _check(_lib(), x, w_q, s_w, w_qt, b, amax_floor, scale_floor)
     out = launch_plan(x, w_qt, s_w, None if b is None else b.to(x.dtype), p, amax_floor, scale_floor)
-    quant_matmul.launches += 1
+    _build.count_launch(quant_matmul)
     return out
 
 

@@ -38,6 +38,7 @@ import torch
 
 from f5tts_tpu_torch.models.dit import DiTConfig, dit_embed, dit_forward
 from f5tts_tpu_torch.ops.masks import lens_to_mask
+from f5tts_tpu_torch.utils.device import to_device
 
 
 @dataclass(frozen=True)
@@ -137,7 +138,7 @@ def sway_time_grid(steps: int, coef: float | None, t_start: float = 0.0, dtype=t
     # dtype: the values jnp.linspace gives in bf16 as well as fp32
     t = t_start + torch.arange(steps + 1, dtype=torch.float32) * ((1.0 - t_start) / steps)
     t[-1] = 1.0
-    t = t.to(device=device, dtype=dtype)
+    t = to_device(t, device if device is not None else "cpu").to(dtype)
     if coef is not None:
         t = t + coef * (torch.cos(math.pi / 2 * t) - 1 + t)
     return t
@@ -150,7 +151,7 @@ def sample_noise_from_seeds(seeds, n: int, mel_dim: int, duration: torch.Tensor,
     for s in torch.as_tensor(seeds).tolist():
         g = torch.Generator(device="cpu").manual_seed(int(s))
         rows.append(torch.randn((n, mel_dim), generator=g, dtype=torch.float32))
-    y0 = torch.stack(rows).to(device=duration.device, dtype=dtype)
+    y0 = to_device(torch.stack(rows), duration.device).to(dtype)
     return torch.where(lens_to_mask(duration, n)[..., None], y0, torch.zeros((), dtype=dtype, device=y0.device))
 
 
@@ -295,7 +296,7 @@ def sample_cfm(
         tg = sampler.time_grid
         if len(tg) < 2 or tg[0] != 0.0 or tg[-1] != 1.0 or any(b_ <= a_ for a_, b_ in zip(tg, tg[1:])):
             raise ValueError("time_grid must be strictly increasing from 0.0 to 1.0")
-        t_grid = torch.tensor(tg, dtype=compute_dtype, device=dev)
+        t_grid = to_device(torch.tensor(tg, dtype=compute_dtype), dev)
     else:
         t_grid = sway_time_grid(sampler.steps, sampler.sway_sampling_coef, dtype=compute_dtype, device=dev)
     if knot_range is not None:

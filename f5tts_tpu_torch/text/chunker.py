@@ -119,3 +119,46 @@ def duration_frames(
     ref_bytes = max(len(ref_text.encode("utf-8")), 1)
     gen_bytes = len(gen_text.encode("utf-8"))
     return ref_frames + int(ref_frames / ref_bytes * gen_bytes / speed)
+
+
+_STYLE_TAG = re.compile(r"\{([\w.-]+)\}|\[([\w.-]+)\]")  # voice stems may carry - or .
+
+
+def split_style_segments(
+    text: str, known_voices, default: str = "main"
+) -> list[tuple[str, str]]:
+    """``(voice, text)`` runs from ``{Style}`` tags (the reference gradio
+    multi-style contract, ``infer/infer_gradio.py:317-499``) or ``[voice]``
+    tags (``infer/infer_cli.py:182-204``).
+
+    Safer-than-reference twist: a tag only switches style when its name
+    resolves (case-insensitively) to a known voice or the literal
+    ``regular`` (gradio's name for the main voice); otherwise the bracketed
+    text is left verbatim, so ordinary texts containing ``[word]`` are not
+    mangled. Untagged leading text uses ``default``.
+    """
+    lookup = {v.lower(): v for v in known_voices}
+    segments: list[tuple[str, str]] = []
+    pos = 0
+    cur = default
+
+    def emit(upto: int):
+        seg = text[pos:upto]
+        if seg.strip():
+            if segments and segments[-1][0] == cur:
+                segments[-1] = (cur, segments[-1][1] + " " + seg.strip())
+            else:
+                segments.append((cur, seg.strip()))
+
+    for m in _STYLE_TAG.finditer(text):
+        name = (m.group(1) or m.group(2)).lower()
+        resolved = default if name == "regular" else lookup.get(name)
+        if resolved is None:
+            continue  # not a voice tag: keep the bracketed text as content
+        emit(m.start())
+        cur = resolved
+        pos = m.end()
+    emit(len(text))
+    if not segments:
+        segments.append((default, text.strip() or text))
+    return segments

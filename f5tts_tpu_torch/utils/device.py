@@ -18,3 +18,14 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     if dev.type == "cpu":
         return dev
     raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
+
+
+def to_device(t: torch.Tensor, device: torch.device | str) -> torch.Tensor:
+    """A host tensor on ``device`` without a host sync: on CUDA it is copied
+    through pinned memory, queued on the current stream behind the work
+    already there (a plain ``.to(device)`` from pageable memory waits for
+    that work to finish first)."""
+    device = torch.device(device)
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
