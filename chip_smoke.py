@@ -3,6 +3,7 @@
     python3 chip_smoke.py               # every phase; needs one CUDA card
     python3 chip_smoke.py --kernels-only
     python3 chip_smoke.py --serving-only  # the build and phase 12 alone (no result lines)
+    python3 chip_smoke.py --backbones-only  # the build, the F5 bench and phases 13-16 (no result lines)
 
 Phases, each of which fails the run (non-zero exit) on any error:
 
@@ -123,7 +124,31 @@ Phases, each of which fails the run (non-zero exit) on any error:
    segment, with a profile; device memory after unload -> load back at its
    first level; the same burst on the window batcher at fetch pipelining
    depth 3 and 1: burst wall time, p50/max latency, the late request's
-   latency.
+   latency;
+13. E2-TTS (after phase 12): ``TTSEngine`` with ``forward_fn=unett_forward,
+   embed_fn=unett_embed`` at E2-TTS Base width and depth (random weights from
+   seed 0) + Vocos, bf16: three requests, one of which chunks, whose launch
+   counts must equal 24 attention + 24 RoPE pre-pass + 1 conv-pos per UNetT
+   forward; one row through ``StepBatcher`` (its segments reach the UNetT
+   through the engine's hooks; exact counts, its wave against the window
+   solve's); bf16 + kernels against fp32 + plain on a small input; the
+   serving attention at the UNetT's shape (n = 1025: nothing is padded)
+   against its plain version, timed beside SDPA; the bench geometry beside
+   the F5 figure of the same run, with the share of attention, conv-pos and
+   the rest of one solve's kernel time and the device's idle share;
+14. MMDiT: one ``mmdit_forward`` at ``MMDiTConfig()`` (dim 1024, depth 22),
+   bf16 with the conv-pos kernel, against fp32 + plain: exactly 1 conv-pos
+   launch and no attention launch (its joint attention is the plain
+   ``sdpa``, XLA in the JAX package); the conv-pos kernel with no mask
+   against its plain version;
+15. BigVGAN: ``TTSEngine(EngineConfig(vocoder_type="bigvgan"))`` at F5-TTS
+   Base + ``BigVGANConfig()`` (full width) with the ``bigvgan`` mel flavor:
+   one request of ``frames * 256`` samples; ``bigvgan_decode`` alone on a
+   batch-8 x 1024-frame mel in bf16 and fp32 (times, relative L2, a profile);
+16. torch checkpoints: seeded F5-TTS Base and Vocos written as ``.pt`` files
+   in the reference's torch layout and as ``.npz`` trees; ``ModelService``
+   and ``cli/infer.build_engine`` give the same wave from either, bit for
+   bit.
 
 The last lines are the card's name and power limit, one ``{"kernels": [...]}``
 JSON line and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -1377,10 +1402,12 @@ BENCH_FAMILIES = (("flash_attention", ("flash_wgmma", "flash_fwd")), ("rope_rows
                   ("quant_prepass", ("quantize_rows_kernel",)), ("bf16_add", ("CUDAFunctor_add<c10::BFloat16>",)))
 
 
-def bench_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card: str, quantization: str = "none") -> dict:
+def bench_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card: str, quantization: str = "none",
+                backbone: str = "F5-TTS", fns: dict | None = None) -> dict:
     """One bucket program at the bench geometry, profiled once and timed three
-    times. Returns the audio-s/s, the median seconds and the profile's launch
-    counts by kernel family."""
+    times. Returns the audio-s/s, the median seconds, and the profile's device
+    milliseconds and launch counts by kernel family. ``fns`` are the engine's
+    backbone hooks (``forward_fn``/``embed_fn``)."""
     from f5tts_tpu_torch.engine.engine import EngineConfig, TTSEngine
     from f5tts_tpu_torch.sampling.euler import DEFAULT_NFE, nfe_to_steps
 
@@ -1388,7 +1415,7 @@ def bench_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card: str, quantizat
     steps = nfe_to_steps(DEFAULT_NFE["ralston"], "ralston")
     engine = TTSEngine(dit_np, dit_cfg, voc_np, tok, EngineConfig(
         vocoder=voc_cfg, duration_buckets=(n,), batch_buckets=(batch,), text_pad=text_pad,
-        quantization=quantization), device=dev)
+        quantization=quantization), device=dev, **(fns or {}))
     rng = np.random.default_rng(0)
     cond = torch.as_tensor(rng.standard_normal((batch, n, 100)), dtype=torch.float32, device=dev)
     cond_lens = torch.full((batch,), ref_frames, dtype=torch.int32, device=dev)
@@ -1401,8 +1428,8 @@ def bench_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card: str, quantizat
         return float(wave[:, :64].sum())  # host fetch: the solve has finished
 
     run()
-    what = "bf16" if quantization == "none" else quantization
-    _, counts = profile_by_family(f"one bench solve ({what})", run, BENCH_FAMILIES)
+    what = f"{backbone} " + ("bf16" if quantization == "none" else quantization)
+    sums, counts = profile_by_family(f"one bench solve ({what})", run, BENCH_FAMILIES)
     forwards = steps * 2  # Ralston: two DiT forwards per step
     want = {"flash_attention": dit_cfg.depth * forwards, "rope_rows": dit_cfg.depth * forwards, "conv_pos": forwards}
     got = {fam: counts.get(fam, 0) for fam in want}
@@ -1416,7 +1443,7 @@ def bench_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card: str, quantizat
     audio_s = batch * (n - ref_frames) / (24000 / 256)
     log(f"bench geometry on {card}: batch {batch}, bucket {n}, ref {ref_frames}, ralston NFE 20, CFG 2, {what}: "
         f"iter_s {[round(t, 4) for t in iters]}, median {dt:.4f} s, {audio_s / dt:.2f} audio-s/s")
-    return {"audio_s_per_s": audio_s / dt, "median_s": dt, "launch_counts": counts}
+    return {"audio_s_per_s": audio_s / dt, "median_s": dt, "launch_counts": counts, "device_ms": sums}
 
 
 COMMON_FAMILIES = (("gemm", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "splitK")), ("reduction", ("reduce_kernel",)),
@@ -1901,10 +1928,389 @@ def parler_phase(dev, card: str, launches: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the other backbones, BigVGAN and torch checkpoints
+# ---------------------------------------------------------------------------
+
+BACKBONE_REQUESTS = [
+    ("Hello there, this is a short test of the E2 backbone.", 2.5, 140.0, "A short reference clip."),
+    ("नमस्ते, यह एक लंबा परीक्षण वाक्य है जो कई हिस्सों में बाँटा जाएगा। " * 4
+     + "The same request mixes scripts, so the chunker packs words into several rows of one bucket.",
+     3.0, 110.0, "यह संदर्भ वाक्य है।"),
+    ("ನಮಸ್ಕಾರ, ಇದು ಮೂರನೇ ವಿನಂತಿ.", 4.0, 180.0, "Reference speech for the third voice."),
+]
+MMDIT_REL_L2 = 5e-2  # one bf16 + kernel MMDiT forward (22 blocks) against fp32 + plain, relative L2 on valid rows
+BIGVGAN_REL_L2 = 5e-2  # bigvgan_decode in bf16 against fp32, relative L2 of the wave
+BIGVGAN_FAMILIES = (("depthwise_conv", ("depthwise", "conv_depthwise")),
+                    ("conv", ("conv", "Conv", "cudnn", "implicit", "fprop", "dgrad", "winograd")),
+                    ("pad", ("reflection_pad", "replication_pad")))
+
+
+def _rel_l2(got: torch.Tensor, ref: torch.Tensor) -> float:
+    return float(torch.linalg.vector_norm((got.float() - ref.float()).flatten())
+                 / torch.linalg.vector_norm(ref.float().flatten()))
+
+
+def _request_waves(engine, requests, what: str) -> list:
+    """``synthesize`` each ``(text, ref seconds, f0, ref text)`` with seed i;
+    every wave finite, non-zero and of the planned length."""
+    waves = []
+    for i, (text, secs, f0, ref_text) in enumerate(requests):
+        ref = synthetic_ref(secs, f0, i)
+        plan = engine.prepare_request(text, ref, 24000, ref_text, seed=i)
+        t_req = time.perf_counter()
+        wave, sr, mel = engine.synthesize(text, ref, 24000, ref_text, seed=i)
+        torch.cuda.synchronize()
+        want = planned_length(engine, plan)
+        log(f"{what} request {i}: {len(plan.rows)} rows, {len(wave) / sr:.3f} s of audio in "
+            f"{time.perf_counter() - t_req:.3f} s")
+        check(sr == 24000 and wave.ndim == 1 and len(wave) == want, f"{what} request {i}: {len(wave)} samples, want {want}")
+        check(bool(np.isfinite(wave).all()) and float(np.abs(wave).max()) > 0 and bool(np.isfinite(mel).all()),
+              f"{what} request {i}: wave or mel not finite/non-zero")
+        waves.append(wave)
+    return waves
+
+
+def e2tts_phase(dev, voc_cfg, voc_np, tok, card: str, launches: dict, f5_bench: dict) -> None:
+    """E2-TTS Base (UNetT, random weights from seed 0) + Vocos through
+    ``TTSEngine``'s backbone hooks: requests with exact launch counts, the
+    bench geometry beside the F5 figure with a profile, one step-batcher row,
+    and bf16 + kernels against fp32 + plain on a small input."""
+    import dataclasses
+
+    from f5tts_tpu_torch.engine.engine import EngineConfig, TTSEngine
+    from f5tts_tpu_torch.engine.step_batcher import StepBatcher
+    from f5tts_tpu_torch.models.convert import init_unett_numpy, unett_params_from_numpy
+    from f5tts_tpu_torch.models.unett import UNetTConfig, unett_embed, unett_forward
+    from f5tts_tpu_torch.ops.kernels.conv_pos import conv_pos
+    from f5tts_tpu_torch.ops.kernels.flash_attention import flash_attention, rope_rows
+    from f5tts_tpu_torch.sampling.euler import SamplerConfig, sample_cfm
+
+    t_phase = time.perf_counter()
+    ucfg = UNetTConfig(text_num_embeds=tok.vocab_size)  # E2-TTS Base: dim 1024, depth 24, 16 x 64 heads
+    u_np = init_unett_numpy(ucfg, seed=0)
+    n_params = sum(a.size for a in _leaves(u_np))
+    fns = {"forward_fn": unett_forward, "embed_fn": unett_embed}
+    engine = TTSEngine(u_np, ucfg, voc_np, tok, EngineConfig(vocoder=voc_cfg), device=dev, **fns)
+    solves = _count_solves(engine)
+    wrappers = {"flash_attention": flash_attention, "rope_rows": rope_rows, "conv_pos": conv_pos}
+    for w in wrappers.values():
+        w.launches = 0
+    _request_waves(engine, BACKBONE_REQUESTS, "E2-TTS")
+    got = {name: w.launches for name, w in wrappers.items()}
+    forwards = sum(f for f, _ in solves)
+    # exactly the UNetT's 24 + 24 + 1 per forward: a DiT forward (22 + 22 + 1) anywhere would break the count
+    want = {"flash_attention": ucfg.depth * forwards, "rope_rows": ucfg.depth * forwards, "conv_pos": forwards}
+    log(f"E2-TTS Base ({n_params / 1e6:.1f} M params): {len(solves)} solves (forwards, rows) {solves}; launches "
+        f"{got} (want {want}: {ucfg.depth} + {ucfg.depth} + 1 per UNetT forward)")
+    check(any(b > 1 for _, b in solves), "E2-TTS: no solve batched several rows")
+    check(got == want and forwards > 0, f"E2-TTS launch counts {got}, want {want}")
+    for name in wrappers:
+        launches[name]["e2tts"] = got[name]
+
+    # one row through the step batcher: its segments reach the UNetT through the engine's hooks
+    k = SERVING_SEGMENT_INTERVALS
+    text, secs, f0, ref_text = BACKBONE_REQUESTS[0]
+    row = engine.prepare_request(text, synthetic_ref(secs, f0, 0), 24000, ref_text, seed=7).rows[0]
+    window_wave = engine.synthesize_rows([row])[0][0]
+    for w in wrappers.values():
+        w.launches = 0
+    batcher = StepBatcher(engine, k).start()
+    try:
+        step_wave = batcher.submit(row).result(timeout=600)[0]
+        segments = batcher.stats["segments"]
+    finally:
+        batcher.stop()
+    torch.cuda.synchronize()
+    got = {name: w.launches for name, w in wrappers.items()}
+    seg_forwards = segments * k * 2
+    want = {"flash_attention": ucfg.depth * seg_forwards, "rope_rows": ucfg.depth * seg_forwards,
+            "conv_pos": seg_forwards}
+    rel_rms = float(np.sqrt(np.mean((step_wave - window_wave) ** 2)) / np.sqrt(np.mean(window_wave**2)))
+    log(f"E2-TTS step batcher: {segments} segments of {k} intervals = {seg_forwards} UNetT forwards, launches {got} "
+        f"(want {want}); wave against the window solve: relative RMS {rel_rms:.3e} (tol {STREAM_REL_RMS})")
+    check(got == want and seg_forwards > 0, f"E2-TTS step-batcher launches {got}, want {want}")
+    check(step_wave.shape == window_wave.shape and rel_rms <= STREAM_REL_RMS, f"E2-TTS step row differs: {rel_rms}")
+    for name in wrappers:
+        launches[name]["e2tts"] += got[name]
+    _unett_attention_check(dev, ucfg)
+
+    # bf16 + kernels against fp32 + plain on a small input (the engine phase's check)
+    rng = np.random.default_rng(3)
+    pb, pn, pref = 2, 256, 64
+    cond = torch.as_tensor(rng.standard_normal((pb, pn, 100)), dtype=torch.float32, device=dev)
+    cl = torch.full((pb,), pref, dtype=torch.int32, device=dev)
+    text_ids = torch.as_tensor(rng.integers(0, 90, (pb, 48)), dtype=torch.int32, device=dev)
+    dur = torch.tensor([pn, pn - 40], dtype=torch.int32, device=dev)
+    y0 = torch.as_tensor(rng.standard_normal((pb, pn, 100)), dtype=torch.float32, device=dev)
+    sampler = SamplerConfig(steps=4, method="ralston", cfg_strength=2.0)
+    with torch.no_grad():
+        serving = sample_cfm(engine.dit_params, engine.dit_cfg, cond=cond, cond_lens=cl, text=text_ids, duration=dur,
+                             sampler=sampler, y0=y0, compute_dtype=torch.bfloat16, **fns).float()
+        p32 = unett_params_from_numpy(u_np, dev, torch.float32)
+        ref = sample_cfm(p32, dataclasses.replace(ucfg, attn_impl="plain", conv_pos_impl="plain"), cond=cond,
+                         cond_lens=cl, text=text_ids, duration=dur, sampler=sampler, y0=y0,
+                         compute_dtype=torch.float32, **fns)
+    gen = torch.zeros((pb, pn), dtype=torch.bool, device=dev)
+    for r in range(pb):
+        gen[r, pref : int(dur[r])] = True
+    rmse = float(torch.sqrt(((serving - ref) ** 2 * gen[..., None]).sum() / (gen.sum() * 100)))
+    log(f"E2-TTS parity: bf16 + kernels vs fp32 plain, mel RMSE over generated frames {rmse:.4f} (tol 0.5)")
+    check(np.isfinite(rmse) and rmse < 0.5, f"E2-TTS serving path diverged from the plain path: {rmse}")
+    del p32, engine
+    torch.cuda.empty_cache()
+
+    # the bench geometry, beside the F5 figure of this run
+    e2 = bench_phase(dev, ucfg, voc_cfg, u_np, voc_np, tok, card, backbone="E2-TTS", fns=fns)
+    for name, bench in (("E2-TTS", e2), ("F5-TTS", f5_bench)):
+        ms = bench["device_ms"]
+        busy = sum(ms.values())
+        attn = ms.get("flash_attention", 0.0) + ms.get("rope_rows", 0.0)
+        conv = ms.get("conv_pos", 0.0)
+        log(f"{name} Base bench solve on {card}: {bench['audio_s_per_s']:.2f} audio-s/s, median {bench['median_s']:.4f} s; "
+            f"kernels {busy:.1f} ms: attention {100 * attn / busy:.1f}%, conv-pos {100 * conv / busy:.1f}%, the rest "
+            f"{100 * (busy - attn - conv) / busy:.1f}%; device idle {100 - 100 * busy / (1e3 * bench['median_s']):.1f}% "
+            f"of the unprofiled median")
+    log(f"E2-TTS phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+def _unett_attention_check(dev, ucfg) -> None:
+    """The serving attention kernel at the UNetT's shape (the bench's 16 rows
+    x 16 heads at n = 1024 + 1 time token, bf16, head-0 RoPE, a ragged key
+    mask) against its fp32 plain version; device time per call in a CUDA graph
+    beside SDPA's and the bound (none of these launches is counted)."""
+    from f5tts_tpu_torch.ops.kernels.flash_attention import cos_sin_of, flash_attention, flash_attention_plain
+    from f5tts_tpu_torch.ops.rope import apply_rotary_per_head, rotary_freqs
+
+    b, h, n, d = 16, ucfg.heads, 1025, ucfg.dim_head
+    g = torch.Generator(device="cpu").manual_seed(1025)
+    q, k, v = _head_split(g, dev, torch.bfloat16, b, h, n, d)
+    lens = torch.randint(n // 2, n + 1, (b,), generator=g).to(dev)
+    lens[0] = n
+    mask = torch.arange(n, device=dev)[None, :] < lens[:, None]
+    freqs = torch.as_tensor(rotary_freqs(n, d), device=dev)
+    trig = cos_sin_of(freqs)
+    out = flash_attention(q, k, v, mask, rope_freqs=freqs, rope_cos_sin=trig)
+    ref = flash_attention_plain(q.float(), k.float(), v.float(), mask, freqs)
+    err = float(((out.float() - ref).abs() * mask[:, None, :, None]).max())
+    del ref
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    qr = torch.cat([apply_rotary_per_head(qc[:, :1], freqs), qc[:, 1:]], 1)
+    kr = torch.cat([apply_rotary_per_head(kc[:, :1], freqs), kc[:, 1:]], 1)
+    bias = torch.where(mask, 0.0, -1e30)[:, None, None, :].to(torch.bfloat16)
+    ms = time_graph_ms([lambda: flash_attention(q, k, v, mask, rope_freqs=freqs, rope_cos_sin=trig)] * 20)
+    ms_lib = time_graph_ms([lambda: F.scaled_dot_product_attention(qr, kr, vc, attn_mask=bias)] * 20)
+    bms, by = bound_ms(4.0 * b * h * n * n * d, 4 * b * h * n * d * 2 + b * n + 2 * n * d * 4, PEAK_BF16_FLOPS)
+    log(f"attention at the UNetT shape ({b} x {h} heads, n {n}, d {d}, bf16, head-0 RoPE, ragged keys): max abs err "
+        f"on valid rows {err:.3e} (tol {ATTN_TOL}); graph {ms:.4f} ms a call, SDPA {ms_lib:.4f} ms, bound {bms:.4f} ms "
+        f"({by})")
+    check(np.isfinite(err) and err <= ATTN_TOL, f"flash_attention at the UNetT shape: error {err} > {ATTN_TOL}")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    elif tree is not None:
+        yield tree
+
+
+def mmdit_phase(dev, tok, launches: dict) -> None:
+    """One MMDiT forward at ``MMDiTConfig()`` (dim 1024, depth 22), bf16 with the
+    conv-pos kernel, against fp32 + plain; exactly 1 conv-pos launch and no
+    flash launch (its joint attention is the plain ``sdpa``, XLA in the JAX
+    package)."""
+    import dataclasses
+
+    from f5tts_tpu_torch.models.convert import init_mmdit_numpy, mmdit_params_from_numpy
+    from f5tts_tpu_torch.models.mmdit import MMDiTConfig, mmdit_forward
+    from f5tts_tpu_torch.ops.kernels.conv_pos import conv_pos, conv_pos_plain
+    from f5tts_tpu_torch.ops.kernels.flash_attention import flash_attention, rope_rows
+
+    t_phase = time.perf_counter()
+    cfg = MMDiTConfig(text_num_embeds=tok.vocab_size)
+    m_np = init_mmdit_numpy(cfg, seed=0)
+    b, n, nt = 2, 1024, 256
+    rng = np.random.default_rng(5)
+    x, cond = (torch.as_tensor(rng.standard_normal((b, n, 100)), dtype=torch.float32, device=dev) for _ in range(2))
+    text = torch.as_tensor(rng.integers(0, tok.vocab_size, (b, nt)), dtype=torch.int32, device=dev)
+    text[1, 200:] = -1
+    time_ = torch.tensor([0.3, 0.8], device=dev)
+    drop = torch.tensor([False, True], device=dev)
+    mask = torch.arange(n, device=dev)[None, :] < torch.tensor([[n], [800]], device=dev)
+    wrappers = {"flash_attention": flash_attention, "rope_rows": rope_rows, "conv_pos": conv_pos}
+    p16 = mmdit_params_from_numpy(m_np, dev, torch.bfloat16)
+    with torch.no_grad():
+        mmdit_forward(p16, cfg, x, cond, text, time_, drop, drop, mask, compute_dtype=torch.bfloat16)  # warm
+        for w in wrappers.values():
+            w.launches = 0
+        out = mmdit_forward(p16, cfg, x, cond, text, time_, drop, drop, mask, compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        got = {name: w.launches for name, w in wrappers.items()}
+        ms = time_ms(lambda: mmdit_forward(p16, cfg, x, cond, text, time_, drop, drop, mask,
+                                           compute_dtype=torch.bfloat16), iters=3, warmup=1)
+        p32 = mmdit_params_from_numpy(m_np, dev, torch.float32)
+        ref = mmdit_forward(p32, dataclasses.replace(cfg, conv_pos_impl="plain"), x, cond, text, time_, drop, drop,
+                            mask)
+    err = _rel_l2(out[mask], ref[mask])
+    log(f"MMDiT (dim {cfg.dim}, depth {cfg.depth}, {sum(a.size for a in _leaves(m_np)) / 1e6:.1f} M params) one forward "
+        f"of {b} x {n} frames + {nt} text tokens: launches {got} (want conv_pos 1, flash 0); bf16 + kernel vs fp32 "
+        f"plain, relative L2 on valid rows {err:.3e} (tol {MMDIT_REL_L2}); {ms:.2f} ms a forward (bf16)")
+    check(got == {"flash_attention": 0, "rope_rows": 0, "conv_pos": 1}, f"MMDiT launch counts {got}")
+    check(bool(torch.isfinite(out).all()) and np.isfinite(err) and err <= MMDIT_REL_L2, f"MMDiT bf16 vs fp32: {err}")
+    launches["conv_pos"]["mmdit"] = got["conv_pos"]
+    del p16, p32
+
+    # the conv-pos kernel as the MMDiT calls it (no mask) against its plain version; not counted
+    w = m_np["audio_embed"]["conv_pos"]
+    w1, b1, w2, b2 = (torch.as_tensor(a, device=dev, dtype=torch.bfloat16) for a in (
+        w["conv1"]["w"], w["conv1"]["b"], w["conv2"]["w"], w["conv2"]["b"]))
+    xc = (torch.randn((b, n, cfg.dim), generator=torch.Generator().manual_seed(14)) * 0.5).to(dev, torch.bfloat16)
+    yc = conv_pos(xc, w1, b1, w2, b2)
+    rc = conv_pos_plain(xc.float(), w1.float(), b1.float(), w2.float(), b2.float())
+    cerr = float((yc.float() - rc).abs().max())
+    cms = time_ms(lambda: conv_pos(xc, w1, b1, w2, b2))
+    log(f"conv-pos kernel with no mask at the MMDiT shape ({b} x {n} x {cfg.dim}, bf16): max abs err {cerr:.3e} "
+        f"(tol {CONV_TOL}), {cms:.4f} ms a call")
+    check(np.isfinite(cerr) and cerr <= CONV_TOL, f"conv_pos without a mask: error {cerr} > {CONV_TOL}")
+    torch.cuda.empty_cache()
+    log(f"MMDiT phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+def bigvgan_phase(dev, dit_cfg, dit_np, tok, card: str, launches: dict) -> None:
+    """``TTSEngine(vocoder_type="bigvgan")`` at F5-TTS Base + BigVGAN at full
+    width with the ``bigvgan`` mel flavor: one request; then
+    ``bigvgan_decode`` alone on a batch-8 x 1024-frame mel, bf16 and fp32."""
+    from f5tts_tpu_torch.engine.engine import EngineConfig, TTSEngine
+    from f5tts_tpu_torch.models.bigvgan import BigVGANConfig, bigvgan_decode
+    from f5tts_tpu_torch.models.convert import bigvgan_params_from_numpy, init_bigvgan_numpy
+    from f5tts_tpu_torch.ops.kernels.conv_pos import conv_pos
+    from f5tts_tpu_torch.ops.kernels.flash_attention import flash_attention, rope_rows
+    from f5tts_tpu_torch.ops.mel import MelConfig
+
+    t_phase = time.perf_counter()
+    bcfg = BigVGANConfig()  # upsample_initial_channel 1536, rates 4,4,2,2,2,2
+    b_np = init_bigvgan_numpy(bcfg, seed=2)
+    engine = TTSEngine(dit_np, dit_cfg, b_np, tok, EngineConfig(mel=MelConfig(flavor="bigvgan"), vocoder_type="bigvgan",
+                                                               bigvgan=bcfg), device=dev)
+    solves = _count_solves(engine)
+    wrappers = {"flash_attention": flash_attention, "rope_rows": rope_rows, "conv_pos": conv_pos}
+    for w in wrappers.values():
+        w.launches = 0
+    text, secs, f0, ref_text = BACKBONE_REQUESTS[0]
+    plan = engine.prepare_request(text, synthetic_ref(secs, f0, 0), 24000, ref_text, seed=0)
+    (wave,) = _request_waves(engine, BACKBONE_REQUESTS[:1], "BigVGAN")
+    frames = sum(min(r.duration, 1024) - r.ref_frames for r in plan.rows)
+    got = {name: w.launches for name, w in wrappers.items()}
+    forwards = sum(f for f, _ in solves)
+    want = {"flash_attention": dit_cfg.depth * forwards, "rope_rows": dit_cfg.depth * forwards, "conv_pos": forwards}
+    log(f"BigVGAN engine ({sum(a.size for a in _leaves(b_np)) / 1e6:.1f} M vocoder params): {len(plan.rows)} row, "
+        f"{frames} generated frames -> {len(wave)} samples (want {frames * 256}); launches {got} (want {want})")
+    check(len(plan.rows) == 1 and len(wave) == frames * 256, "BigVGAN request: wrong wave length")
+    check(got == want, f"BigVGAN engine launch counts {got}, want {want}")
+    for name in wrappers:
+        launches[name]["bigvgan"] = got[name]
+    del engine
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(6)
+    mel = torch.as_tensor(rng.standard_normal((8, 1024, 100)) * 2 - 5, dtype=torch.float32, device=dev)
+    out = {}
+    with torch.no_grad():
+        for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            p = bigvgan_params_from_numpy(b_np, dev, dtype)
+            out[name] = bigvgan_decode(p, mel, bcfg, compute_dtype=dtype)
+            out[f"{name}_ms"] = time_ms(lambda p=p, dtype=dtype: bigvgan_decode(p, mel, bcfg, compute_dtype=dtype),
+                                        iters=3, warmup=1)
+            if dtype == torch.bfloat16:
+                profile_by_family(f"one bigvgan_decode (bf16, 8 x 1024 frames) on {card}",
+                                  lambda p=p: (bigvgan_decode(p, mel, bcfg, compute_dtype=torch.bfloat16),
+                                               torch.cuda.synchronize()), BIGVGAN_FAMILIES)
+            del p
+    err = _rel_l2(out["bf16"], out["fp32"])
+    secs = 8 * 1024 * 256 / 24000
+    log(f"bigvgan_decode on {card}, batch 8 x 1024 frames ({secs:.2f} s of audio): fp32 {out['fp32_ms']:.2f} ms, "
+        f"bf16 {out['bf16_ms']:.2f} ms ({secs / (out['bf16_ms'] / 1e3):.1f} audio-s/s); bf16 vs fp32 relative L2 "
+        f"{err:.3e} (tol {BIGVGAN_REL_L2})")
+    check(out["bf16"].shape == (8, 1024 * 256) and bool(torch.isfinite(out["bf16"]).all()), "bigvgan_decode bf16")
+    check(np.isfinite(err) and err <= BIGVGAN_REL_L2, f"bigvgan_decode bf16 vs fp32: {err}")
+    del out
+    torch.cuda.empty_cache()
+    log(f"BigVGAN phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+def torch_ckpt_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok) -> None:
+    """Seeded F5-TTS Base and Vocos written as ``.pt`` files in the
+    reference's torch layout (``export_*_state_dict``) and as ``.npz`` trees:
+    ``ModelService`` and ``cli/infer.build_engine`` give the same wave from
+    either, bit for bit."""
+    import shutil
+    import tempfile
+
+    from f5tts_tpu_torch.cli import infer as cli
+    from f5tts_tpu_torch.models.convert import export_f5_state_dict, export_vocos_state_dict, save_params_npz
+    from f5tts_tpu_torch.serve.schemas import SpeechRequest
+    from f5tts_tpu_torch.serve.service import ModelService
+    from f5tts_tpu_torch.utils.config import Settings
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="f5_ckpt_")
+    vocab = os.path.join(HERE, "examples", "vocab.txt")
+    try:
+        paths = {"pt": (os.path.join(tmp, "model.pt"), os.path.join(tmp, "vocos.pt")),
+                 "npz": (os.path.join(tmp, "model.npz"), os.path.join(tmp, "vocos.npz"))}
+        ema = {f"ema_model.{k}": torch.from_numpy(v) for k, v in export_f5_state_dict(dit_np, dit_cfg).items()}
+        torch.save({"ema_model_state_dict": {**ema, "initted": torch.ones(1), "step": torch.ones(1)}}, paths["pt"][0])
+        torch.save({k: torch.from_numpy(v) for k, v in export_vocos_state_dict(voc_np, voc_cfg).items()}, paths["pt"][1])
+        del ema
+        save_params_npz(paths["npz"][0], dit_np)
+        save_params_npz(paths["npz"][1], voc_np)
+        log(f"torch checkpoints: F5-TTS Base .pt {os.path.getsize(paths['pt'][0]) / 2**20:.0f} MiB, Vocos .pt "
+            f"{os.path.getsize(paths['pt'][1]) / 2**20:.0f} MiB written in {time.perf_counter() - t_phase:.1f} s")
+        served, built = {}, {}
+        text = "A checkpoint read from the reference's torch layout."
+        for kind, (model, vocoder) in paths.items():
+            t0 = time.perf_counter()
+            service = ModelService(Settings(device=dev.type, dtype="bfloat16", warmup=False, tts_ckpt=model,
+                                            tts_vocab=vocab, vocoder_ckpt=vocoder))
+            service.load()
+            served[kind] = service.synthesize_sync(SpeechRequest(text=text, seed=11))
+            service.unload()
+            args = cli.build_argparser().parse_args(["-p", model, "--vocoder-ckpt", vocoder, "-v", vocab,
+                                                     "--device", dev.type])
+            engine = cli.build_engine(args)
+            built[kind] = engine.synthesize(text, synthetic_ref(2.5, 140.0, 0), 24000, "A short reference clip.",
+                                            seed=11)[0]
+            del engine
+            torch.cuda.empty_cache()
+            log(f"torch checkpoints: {kind} through ModelService and cli/infer.build_engine in "
+                f"{time.perf_counter() - t0:.1f} s ({len(served[kind])} WAV bytes, {len(built[kind])} samples)")
+        check(served["pt"] == served["npz"], "ModelService: the .pt load's wave differs from the .npz load's")
+        check(built["pt"].shape == built["npz"].shape and np.array_equal(built["pt"], built["npz"])
+              and float(np.abs(built["pt"]).max()) > 0, "build_engine: the .pt load's wave differs from the .npz load's")
+        log("torch checkpoints: the .pt loads give the .npz loads' waves bit for bit (service and CLI)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"torch checkpoint phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+def backbone_phases(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card: str, launches: dict, f5_bench: dict) -> None:
+    """Phases 13-16."""
+    e2tts_phase(dev, voc_cfg, voc_np, tok, card, launches, f5_bench)
+    mmdit_phase(dev, tok, launches)
+    bigvgan_phase(dev, dit_cfg, dit_np, tok, card, launches)
+    torch_ckpt_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--serving-only", action="store_true",
                     help="build the kernels and run only the serving phase (no result lines)")
+    ap.add_argument("--backbones-only", action="store_true",
+                    help="build the kernels and run only the F5 bench and phases 13-16 (no result lines)")
     ap.add_argument("--kernels-only", action="store_true",
                     help="build and check the kernels (and run the ablation), skip the engine, bench, int8, "
                          "training and Parler phases")
@@ -1931,7 +2337,7 @@ def main():
 
     from f5tts_tpu_torch.ops.kernels.ablate_attention import ablate_attention
 
-    if args.serving_only:
+    if args.serving_only or args.backbones_only:
         from f5tts_tpu_torch.models.convert import init_dit_numpy, init_vocos_numpy
         from f5tts_tpu_torch.models.dit import DiTConfig
         from f5tts_tpu_torch.models.vocos import VocosConfig
@@ -1939,10 +2345,14 @@ def main():
 
         tok = Tokenizer.from_file(os.path.join(HERE, "examples", "vocab.txt"))
         dit_cfg, voc_cfg = DiTConfig(text_num_embeds=tok.vocab_size), VocosConfig()
+        dit_np, voc_np = init_dit_numpy(dit_cfg, seed=0), init_vocos_numpy(voc_cfg, seed=1)
         launches = {name: {} for name in ("flash_attention", "rope_rows", "conv_pos")}
-        serving_phase(dev, dit_cfg, voc_cfg, init_dit_numpy(dit_cfg, seed=0), init_vocos_numpy(voc_cfg, seed=1), tok,
-                      card, launches)
-        log(f"serving launches {launches}")
+        if args.serving_only:
+            serving_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card, launches)
+        else:
+            f5_bench = bench_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card)
+            backbone_phases(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card, launches, f5_bench)
+        log(f"launches {launches}")
         return
     kernels = [attention_phase(dev), conv_phase(dev), *train_kernel_phase(dev), decode_attention_phase(dev),
                quant_matmul_phase(dev), ablate_attention_phase(dev)]
@@ -1962,6 +2372,7 @@ def main():
         bf16_bench = bench_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card)
         int8_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card, launches, bf16_bench)
         serving_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card, launches)
+        backbone_phases(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card, launches, bf16_bench)  # phases 13-16
         del dit_np, voc_np
         train_phase(dev, dit_cfg, TRAIN_SHAPES, tok, card, launches)  # F5-TTS Base, dropout 0.1, kernels
         parler_phase(dev, card, launches)  # indic-parler-tts width and depth, random weights

@@ -1,6 +1,7 @@
-"""Reference-audio preprocessing: silence clipping, edge trim, RMS norm, resample
-(the parts of ``f5tts_tpu/audio/preprocess.py`` the engine and CLI use, copied
-so the port imports nothing of the JAX package).
+"""Reference-audio preprocessing: silence clipping, edge trim, RMS norm,
+resample, and the removal of long silences from a generated wave (the parts
+of ``f5tts_tpu/audio/preprocess.py`` the engine and CLI use, copied so the
+port imports nothing of the JAX package).
 
 Numpy re-implementation of the reference's pydub-based pipeline
 (``infer/utils_infer.py:263-351``): split on silence with two threshold stages
@@ -164,6 +165,16 @@ def clip_ref_audio(audio: np.ndarray, sr: int, max_ms: int = 15000) -> np.ndarra
         clipped = _ms_slice(audio, sr, 0, max_ms)
     clipped = remove_silence_edges(clipped, sr)
     return np.concatenate([clipped, np.zeros(_ms_idx(50, sr), dtype=audio.dtype)])
+
+
+def remove_long_silences(audio: np.ndarray, sr: int, min_silence_ms: int = 1000,
+                         thresh_db: float = -50.0, keep_silence_ms: int = 500) -> np.ndarray:
+    """Collapse long internal silences of a generated wave (``utils_infer.py:530-539``:
+    split on silence, concatenate the pieces)."""
+    segs = split_on_silence(audio, sr, min_silence_ms, thresh_db, keep_silence_ms, seek_ms=10)
+    if not segs:
+        return audio[:0]
+    return np.concatenate(segs)
 
 
 def resample(audio: np.ndarray, sr: int, target_sr: int = TARGET_SR) -> np.ndarray:

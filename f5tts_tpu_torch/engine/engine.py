@@ -9,7 +9,7 @@ clip -> waveform.
   ``solve_batch_caps``.
 - **Program per bucket.** ``sample_cfm`` (fused 2b-row CFG) -> roll the
   generated frames to the origin and zero past each row's generated length
-  -> ``vocos_decode``.
+  -> the vocoder (``self._decode``).
 
 - **Strict quality.** Rows with ``quality="strict"`` solve with the sampler's
   embedded error estimate; a row whose estimate exceeds ``strict_threshold``
@@ -23,18 +23,22 @@ clip -> waveform.
   into pinned memory, so the host's unpacking of one solve overlaps the card's
   next one.
 
-The engine keeps a bf16 serving copy of the parameters and runs the DiT with
-``attn_impl="flash"`` and ``conv_pos_impl="fused"``: on a GPU those are the
-hand-written CUDA kernels, on the CPU their plain versions. With
-``quantization="int8"`` the blocks' six linears are quantized after the dtype
-cast (W8A8, ``models/dit.py:quantize_dit_params``) and run through the
-``quant_matmul`` kernel. The BigVGAN vocoder and multi-device serving are not
-ported yet.
+The engine keeps a bf16 serving copy of the parameters and runs the backbone
+with ``attn_impl="flash"`` and ``conv_pos_impl="fused"``: on a GPU those are
+the hand-written CUDA kernels, on the CPU their plain versions. The backbone
+is the DiT by default; ``forward_fn``/``embed_fn`` (``unett_forward``/
+``unett_embed``) make it the E2-TTS UNetT, and they reach every solve, the
+step batcher's segments included. The vocoder is Vocos, or BigVGAN with
+``vocoder_type="bigvgan"``; every decode goes through ``self._decode``. With
+``quantization="int8"`` the DiT blocks' six linears are quantized after the
+dtype cast (W8A8, ``models/dit.py:quantize_dit_params``) and run through the
+``quant_matmul`` kernel. Multi-device serving is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -42,8 +46,10 @@ import torch
 
 from f5tts_tpu_torch.audio.preprocess import TARGET_RMS, TARGET_SR, normalize_rms, resample
 from f5tts_tpu_torch.audio.stitch import crossfade_concat, crossfade_pair
-from f5tts_tpu_torch.models.convert import dit_params_from_numpy, vocos_params_from_numpy
-from f5tts_tpu_torch.models.dit import DiTConfig, quantize_dit_params
+from f5tts_tpu_torch.models.bigvgan import BigVGANConfig, bigvgan_decode
+from f5tts_tpu_torch.models.convert import (backbone_params_from_numpy, bigvgan_params_from_numpy,
+                                            vocos_params_from_numpy)
+from f5tts_tpu_torch.models.dit import DiTConfig, dit_embed, dit_forward, quantize_dit_params
 from f5tts_tpu_torch.models.vocos import VocosConfig, vocos_decode
 from f5tts_tpu_torch.ops.mel import MelConfig, bucketed_log_mel
 from f5tts_tpu_torch.sampling.euler import (EVALS_PER_STEP, SamplerConfig, default_time_grid, nfe_to_steps,
@@ -59,7 +65,9 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 @dataclass(frozen=True)
 class EngineConfig:
     mel: MelConfig = field(default_factory=MelConfig)
+    vocoder_type: str = "vocos"  # "vocos" | "bigvgan" (pair "bigvgan" with MelConfig(flavor="bigvgan"))
     vocoder: VocosConfig = field(default_factory=VocosConfig)
+    bigvgan: BigVGANConfig | None = None  # vocoder_type="bigvgan": None = BigVGANConfig(mel_dim=mel.n_mels)
     # serving default: Ralston RK2, 10 intervals (NFE 20 per branch), CFG 2
     sampler: SamplerConfig = field(default_factory=serving_default_sampler)
     duration_buckets: tuple[int, ...] = (256, 512, 768, 1024, 1536, 2048, 3072, 4096)
@@ -92,6 +100,8 @@ class EngineConfig:
     def __post_init__(self):
         if self.compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}, got {self.compute_dtype!r}")
+        if self.vocoder_type not in ("vocos", "bigvgan"):
+            raise ValueError(f"vocoder_type must be 'vocos' or 'bigvgan', got {self.vocoder_type!r}")
         if self.quantization not in ("none", "int8"):
             raise ValueError(f"quantization must be 'none' or 'int8', got {self.quantization!r}")
         if self.fetch_pipeline_depth < 1:
@@ -144,21 +154,37 @@ class RequestPlan:
 
 class TTSEngine:
     def __init__(self, dit_params, dit_cfg: DiTConfig, vocos_params, tokenizer: Tokenizer,
-                 cfg: EngineConfig = EngineConfig(), device: str | torch.device | None = None):
-        """``dit_params``/``vocos_params``: the JAX numpy params trees (e.g.
-        ``load_params_npz`` of an ``f5tpu-convert`` file, or ``init_*_numpy``).
-        The engine keeps its serving copy on ``device`` in ``cfg.compute_dtype``."""
+                 cfg: EngineConfig = EngineConfig(), device: str | torch.device | None = None,
+                 forward_fn=dit_forward, embed_fn=dit_embed):
+        """``dit_params``/``vocos_params``: the JAX numpy params trees of the
+        backbone and the vocoder (e.g. ``load_params_npz`` of an
+        ``f5tpu-convert`` file, a converted torch checkpoint, or
+        ``init_*_numpy``); ``vocos_params`` holds BigVGAN's tree when
+        ``cfg.vocoder_type == "bigvgan"``. ``forward_fn``/``embed_fn`` are the
+        backbone's (``dit_*`` or ``unett_*``; ``dit_cfg`` is its config). The
+        engine keeps its serving copy on ``device`` in ``cfg.compute_dtype``."""
         self.device = resolve_device(device)
         self.compute_dtype = _DTYPES[cfg.compute_dtype]
-        self.dit_params = dit_params_from_numpy(dit_params, self.device, self.compute_dtype)
+        self.dit_params = backbone_params_from_numpy(dit_params, self.device, self.compute_dtype)
         if cfg.quantization == "int8":
+            if "blocks" not in self.dit_params:
+                raise ValueError("quantization='int8' quantizes the DiT's blocks; this backbone has none")
             # after the dtype cast, on the device: the scales come from the
             # weights as served (rounded to bf16) and stay fp32
             self.dit_params = quantize_dit_params(self.dit_params)
-        self.vocos_params = vocos_params_from_numpy(vocos_params, self.device, self.compute_dtype)
         self.dit_cfg = dataclasses.replace(dit_cfg, attn_impl="flash", conv_pos_impl="fused")
+        self.forward_fn, self.embed_fn = forward_fn, embed_fn
         self.tokenizer = tokenizer
         self.cfg = cfg
+        if cfg.vocoder_type == "bigvgan":
+            bcfg = cfg.bigvgan if cfg.bigvgan is not None else BigVGANConfig(mel_dim=cfg.mel.n_mels)
+            self._upsampling = math.prod(bcfg.upsample_rates)
+            self.vocos_params = bigvgan_params_from_numpy(vocos_params, self.device, self.compute_dtype)
+            # the wave in fp32, as the iSTFT gives Vocos's
+            self._decode = lambda vp, mel: bigvgan_decode(vp, mel, bcfg, compute_dtype=self.compute_dtype).float()
+        else:
+            self.vocos_params = vocos_params_from_numpy(vocos_params, self.device, self.compute_dtype)
+            self._decode = lambda vp, mel: vocos_decode(vp, mel, cfg.vocoder, compute_dtype=self.compute_dtype)
         self._host_rng = np.random.default_rng()
         # quality="strict" observability: recipe escalations so far, and the
         # last synthesize_rows call's per-row embedded-error estimates
@@ -191,7 +217,10 @@ class TTSEngine:
         return chunk_text(gen_text, max_chars=max_chars)
 
     def _wave_samples(self, n_frames: int) -> int:
-        """Samples produced for n mel frames: the centered iSTFT yields (n-1)*hop."""
+        """Samples produced for n mel frames: Vocos's centered iSTFT yields
+        (n-1)*hop; BigVGAN's transposed convs yield n*prod(rates)."""
+        if self.cfg.vocoder_type == "bigvgan":
+            return max(n_frames * self._upsampling, 0)
         return max((n_frames - 1) * self.cfg.mel.hop_length, 0)
 
     def _prepare_reference(self, gen_text: str, ref_audio: np.ndarray, ref_sr: int, ref_text: str, speed: float):
@@ -420,8 +449,9 @@ class TTSEngine:
         ``seeds`` or explicit noise ``y0 (b, n, mel)``. Returns (generated mel
         rolled to frame ``out_start`` (default ``cond_lens``: the generated
         tail) and zeroed past each row's generated length, fp32
-        ``(b, n, mel)``; waveform ``(b, (n-1)*hop)`` fp32) and, with
-        ``estimate``, the per-row embedded error ``(b,)``. ``edit_mask
+        ``(b, n, mel)``; fp32 waveform ``(b, samples)``: Vocos ``(n-1)*hop``,
+        BigVGAN ``n*prod(rates)``) and, with ``estimate``, the per-row
+        embedded error ``(b,)``. ``edit_mask
         (b, n)`` bool (False = regenerate) turns rows into edit rows, which
         pass ``out_start`` 0 to get the whole utterance. ``recipe`` solves
         with the exact reference recipe (euler, 32 steps, sway -1) whatever
@@ -434,7 +464,7 @@ class TTSEngine:
         mel_out = sample_cfm(
             self.dit_params, self.dit_cfg, cond=cond, cond_lens=cond_lens, text=text, duration=duration,
             sampler=sampler, y0=y0, seeds=seeds, edit_mask=edit_mask, compute_dtype=self.compute_dtype,
-            return_error_estimate=estimate)
+            return_error_estimate=estimate, forward_fn=self.forward_fn, embed_fn=self.embed_fn)
         if estimate:
             mel_out, est = mel_out
         start = cond_lens if out_start is None else out_start
@@ -444,7 +474,7 @@ class TTSEngine:
         gen_len = duration - start
         gen = torch.where(frames[None, :, None] < gen_len[:, None, None], gen,
                           torch.zeros((), dtype=gen.dtype, device=gen.device))
-        wave = vocos_decode(self.vocos_params, gen, self.cfg.vocoder, compute_dtype=self.compute_dtype)
+        wave = self._decode(self.vocos_params, gen)
         return (gen.float(), wave, est) if estimate else (gen.float(), wave)
 
     def _pack_group(self, rows: list[RowSpec], sub: list[int], nb: int, bb: int):

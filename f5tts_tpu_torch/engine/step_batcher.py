@@ -40,7 +40,6 @@ import torch
 
 from f5tts_tpu_torch.engine.batcher import OverloadedError
 from f5tts_tpu_torch.engine.engine import RowSpec, TTSEngine, _bucket
-from f5tts_tpu_torch.models.vocos import vocos_decode
 from f5tts_tpu_torch.sampling.euler import sample_noise_from_seeds
 from f5tts_tpu_torch.sampling.segment import (finalize_rows, pair_text_embedding, resolved_time_grid, row_masks,
                                               solve_segment)
@@ -83,19 +82,20 @@ class SegmentPrograms:
 
     def embed(self, text: torch.Tensor, attn_mask: torch.Tensor) -> torch.Tensor:
         e = self.engine
-        return pair_text_embedding(e.dit_params, e.dit_cfg, text, attn_mask, attn_mask.shape[1])
+        return pair_text_embedding(e.dit_params, e.dit_cfg, text, attn_mask, attn_mask.shape[1], e.embed_fn)
 
     def seg(self, cond, cond_lens, text, duration, cfg_s, y, t0s, t1s, em, text_emb2=None) -> torch.Tensor:
         e = self.engine
         return solve_segment(
             e.dit_params, e.dit_cfg, cond=cond, cond_lens=cond_lens, text=text, duration=duration, y=y,
             t0s=t0s, t1s=t1s, cfg_strength=cfg_s, cfg_interval=tuple(e.cfg.sampler.cfg_interval),
-            method=self.method, edit_mask=em, compute_dtype=e.compute_dtype, text_emb2=text_emb2)
+            method=self.method, edit_mask=em, compute_dtype=e.compute_dtype, forward_fn=e.forward_fn,
+            embed_fn=e.embed_fn, text_emb2=text_emb2)
 
     def fin(self, cond, cond_lens, text, duration, y, out_start, em):
         e = self.engine
         return finalize_rows(
-            lambda vp, mel: vocos_decode(vp, mel, e.cfg.vocoder, compute_dtype=e.compute_dtype), e.vocos_params,
+            e._decode, e.vocos_params,
             cond=cond, cond_lens=cond_lens, text=text, duration=duration, y=y, out_start=out_start,
             edit_mask=em, compute_dtype=e.compute_dtype)
 

@@ -1,11 +1,11 @@
-"""Building-block layers of the DiT and Vocos (counterpart of
+"""Building-block layers of the DiT, UNetT, MMDiT and Vocos (counterpart of
 ``f5tts_tpu/models/modules.py``).
 
 Plain functions on tensors and parameter dictionaries with the JAX layouts:
 Linear ``w: (in, out)``, Conv1d kernel ``(width, in/groups, out)``, Embedding
 ``(vocab, dim)``, activations frame-major ``(b, n, c)``. Numerics follow the
-JAX code: tanh GELU in FeedForward, exact GELU in ConvNeXtV2, layer norm and
-the GRN norm in fp32, the reference's head-0-only flat RoPE.
+JAX code: tanh GELU in FeedForward, exact GELU in ConvNeXtV2, layer norm,
+RMS norm and the GRN norm in fp32, the reference's head-0-only flat RoPE.
 
 ``linear`` sends int8-quantized params (``w_q``, ``s_w``) through the
 ``quant_matmul`` wrapper. ``attention(impl="flash")`` and
@@ -106,6 +106,14 @@ def layer_norm(x, eps: float = 1e-6, weight=None, bias=None):
     if bias is not None:
         y = y + bias.float()
     return y.to(x.dtype)
+
+
+def rms_norm(p, x, eps: float = 1e-8):
+    """x-transformers RMSNorm (the UNetT's): ``x * sqrt(dim) * g`` over the
+    unit-RMS row, in fp32."""
+    x32 = x.float()
+    normed = x32 * torch.rsqrt(torch.clamp_min((x32 * x32).sum(-1, keepdim=True), eps)) * (x.shape[-1] ** 0.5)
+    return (normed * p["g"].float()).to(x.dtype)
 
 
 def _where_rows(mask, x):

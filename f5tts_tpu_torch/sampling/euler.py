@@ -213,8 +213,11 @@ def sample_cfm(
     paste_back: bool = True,
     time_grid_array: torch.Tensor | None = None,
     return_error_estimate: bool = False,
+    forward_fn=dit_forward,
+    embed_fn=dit_embed,
 ):
     """Returns the sampled mel ``(b, n, mel)`` (cond frames pasted back).
+    ``forward_fn``/``embed_fn`` are the backbone's (``dit_*``, ``unett_*``).
 
     ``knot_range=(a, b)`` integrates only knots ``t_grid[a..b]`` starting from
     ``y0`` (the previous segment's raw output) and ``paste_back=False``
@@ -264,11 +267,11 @@ def sample_cfm(
         # one fused forward of batch 2b: [cond branch; null branch]
         drop2 = torch.cat([f, ~f])
         mask2 = torch.cat([attn_mask, attn_mask])
-        text_emb2 = dit_embed(params, model_cfg, torch.cat([text, text]), n, drop2, mask2)
+        text_emb2 = embed_fn(params, model_cfg, torch.cat([text, text]), n, drop2, mask2)
         cond2 = torch.cat([step_cond, step_cond])
 
         def velocity_pair(t, x):
-            out = dit_forward(params, model_cfg, torch.cat([x, x]), cond2, None,
+            out = forward_fn(params, model_cfg, torch.cat([x, x]), cond2, None,
                               t.expand(2 * b).to(compute_dtype), drop2, drop2, mask2,
                               text_emb=text_emb2, compute_dtype=compute_dtype)
             return out[:b], out[b:]
@@ -281,13 +284,13 @@ def sample_cfm(
             text_emb1 = text_emb2[:b]  # the cond half of the fused embedding
 
             def cond_forward(t, x):  # the plain cond branch at batch b
-                return dit_forward(params, model_cfg, x, step_cond, None, t.expand(b).to(compute_dtype),
+                return forward_fn(params, model_cfg, x, step_cond, None, t.expand(b).to(compute_dtype),
                                    f, f, attn_mask, text_emb=text_emb1, compute_dtype=compute_dtype)
     else:
-        text_emb = dit_embed(params, model_cfg, text, n, f, attn_mask)
+        text_emb = embed_fn(params, model_cfg, text, n, f, attn_mask)
 
         def velocity(t, x):
-            return dit_forward(params, model_cfg, x, step_cond, None, t.expand(b).to(compute_dtype),
+            return forward_fn(params, model_cfg, x, step_cond, None, t.expand(b).to(compute_dtype),
                                f, f, attn_mask, text_emb=text_emb, compute_dtype=compute_dtype)
 
     if time_grid_array is not None:

@@ -13,8 +13,23 @@ from f5tts_tpu_torch.utils.config import SUPPORTED_LANGUAGES
 MAX_TEXT_CHARS = 100_000
 
 
-_FLOAT_STR = re.compile(r"[+-]?(\d+(\.\d*)?|\.\d+)([eE][+-]?\d+)?|[+-]?(nan|inf|infinity)", re.IGNORECASE)
-_INT_STR = re.compile(r"[+-]?\d+(_\d+)*(\.0+)?")
+# ASCII digits only: ``\d`` would take every Unicode decimal digit, which
+# pydantic refuses
+_FLOAT_STR = re.compile(r"[+-]?([0-9]+(\.[0-9]*)?|\.[0-9]+)([eE][+-]?[0-9]+)?|[+-]?(nan|inf|infinity)", re.IGNORECASE)
+_INT_STR = re.compile(r"[+-]?[0-9]+(_[0-9]+)*(\.0+)?")
+
+
+def _float_str(t: str) -> float | None:
+    """A float string as pydantic parses it, else None: the stripped string
+    as it stands, or, failing that, the unstripped string with its
+    underscores removed, where none leads, trails or doubles."""
+    if _FLOAT_STR.fullmatch(t.strip()):
+        return float(t.strip())
+    if "_" in t and not (t.startswith("_") or t.endswith("_") or "__" in t):
+        bare = t.replace("_", "")
+        if _FLOAT_STR.fullmatch(bare):
+            return float(bare)
+    return None
 
 
 def _number(name: str, v, lo: float, hi: float, kind):
@@ -23,11 +38,16 @@ def _number(name: str, v, lo: float, hi: float, kind):
     allowed) pass, and an int field takes a float or string with no
     fractional part; NaN and infinities fail the bounds."""
     if isinstance(v, str):
-        t = v.strip()
-        pattern = _INT_STR if kind is int else _FLOAT_STR
-        if not pattern.fullmatch(t):
-            raise ValueError(f"{name} must be a number, got {v!r}")
-        v = int(t.split(".")[0]) if kind is int else float(t)
+        if kind is int:
+            t = v.strip()
+            if not _INT_STR.fullmatch(t):
+                raise ValueError(f"{name} must be a number, got {v!r}")
+            v = int(t.split(".")[0])
+        else:
+            f = _float_str(v)
+            if f is None:
+                raise ValueError(f"{name} must be a number, got {v!r}")
+            v = f
     elif not isinstance(v, (int, float)):
         raise ValueError(f"{name} must be a number, got {v!r}")
     if kind is int:

@@ -11,12 +11,14 @@ JAX service raises an aiohttp ``web.HTTP*`` error this one raises
 ``serve/server.py`` maps back to HTTP; so this module (and whatever drives it
 in-process, like ``chip_smoke.py``) needs neither aiohttp nor pydantic.
 
-Checkpoints: ``.npz`` params trees (``f5tpu-convert`` output, read by
-``load_params_npz``) and checkpoint directories of the port's ``Trainer``
-(their EMA params). Torch ``.pt``/``.safetensors`` checkpoints, the BigVGAN
-vocoder and Parler checkpoints are not ported yet (ROADMAP A.3, A.5, A.6) and
-raise at load. The Parler branch serves ``demo_tiny`` random weights with an
-``ord(c) % vocab`` stand-in tokenizer.
+Checkpoints: torch ``.pt``/``.pth``/``.bin``/``.ckpt``/``.safetensors`` files
+(F5-TTS, Vocos and BigVGAN state dicts, converted by ``models/convert.py``),
+``.npz`` params trees (``cli/convert.py`` or ``f5tpu-convert`` output) and
+checkpoint directories of the port's ``Trainer`` (their EMA params). The
+vocoder is Vocos or, with ``vocoder_type="bigvgan"``, BigVGAN with the
+``bigvgan`` mel flavor, as in the JAX server. Parler checkpoints are not
+ported yet (ROADMAP A.6) and raise at load; the Parler branch serves
+``demo_tiny`` random weights with an ``ord(c) % vocab`` stand-in tokenizer.
 """
 
 from __future__ import annotations
@@ -77,19 +79,33 @@ class RateLimiter:
             return allowed
 
 
-def load_checkpoint_tree(path: str) -> dict:
-    """The numpy params tree of a checkpoint: an ``.npz`` params tree or a
-    ``Trainer`` checkpoint directory (its EMA params)."""
-    from f5tts_tpu_torch.models.convert import load_params_npz, load_trained_checkpoint
+def load_checkpoint_tree(path: str, kind: str = "f5", cfg=None) -> dict:
+    """The numpy params tree of a checkpoint: a torch file converted as
+    ``kind`` says (``"f5"`` at ``cfg`` or F5-TTS Base's depth, ``"vocos"``,
+    ``"bigvgan"`` at ``cfg`` or the default geometry), an ``.npz`` params tree
+    or a ``Trainer`` checkpoint directory (its EMA params)."""
+    from f5tts_tpu_torch.models import convert as C
+    from f5tts_tpu_torch.models.bigvgan import BigVGANConfig
+    from f5tts_tpu_torch.models.dit import DiTConfig
 
     if os.path.isdir(path):
-        return load_trained_checkpoint(path)
+        return C.load_trained_checkpoint(path)
     if path.endswith(".npz"):
-        return load_params_npz(path)
-    if path.endswith((".pt", ".pth", ".bin", ".ckpt", ".safetensors")):
-        raise ValueError(f"{path}: torch checkpoints are not read by the port yet (ROADMAP A.3); convert it "
-                         "with f5tpu-convert to the .npz params tree")
-    raise ValueError(f"{path}: not a checkpoint the port reads (.npz params tree or a Trainer directory)")
+        return C.load_params_npz(path)
+    if path.endswith(C.TORCH_SUFFIXES):
+        try:
+            sd = C.load_torch_state_dict(path)
+        except Exception as e:  # unpickling and safetensors errors, named with the file
+            raise ValueError(f"{path}: cannot read the torch checkpoint: {e}") from e
+        if kind == "f5":
+            return C.convert_f5_dit(sd, cfg or DiTConfig())
+        if kind == "vocos":
+            return C.convert_vocos(sd)
+        if kind == "bigvgan":
+            return C.convert_bigvgan(sd, cfg or BigVGANConfig())
+        raise ValueError(f"unknown checkpoint kind {kind!r}")
+    raise ValueError(f"{path}: not a checkpoint the port reads (torch file, .npz params tree or a Trainer "
+                     "directory)")
 
 
 class ModelService:
@@ -126,7 +142,8 @@ class ModelService:
             self._load_parler_locked()
             return
         from f5tts_tpu_torch.engine.engine import EngineConfig, TTSEngine
-        from f5tts_tpu_torch.models.convert import init_dit_numpy, init_vocos_numpy
+        from f5tts_tpu_torch.models.bigvgan import BigVGANConfig
+        from f5tts_tpu_torch.models.convert import init_bigvgan_numpy, init_dit_numpy, init_vocos_numpy
         from f5tts_tpu_torch.models.dit import DiTConfig
         from f5tts_tpu_torch.models.vocos import VocosConfig
         from f5tts_tpu_torch.ops.mel import MelConfig
@@ -134,24 +151,28 @@ class ModelService:
         from f5tts_tpu_torch.text.tokenizer import Tokenizer
 
         s = self.settings
-        if s.vocoder_type == "bigvgan":
-            raise ValueError("vocoder_type=bigvgan: the BigVGAN vocoder is not ported yet (ROADMAP A.5)")
+        use_bigvgan = s.vocoder_type == "bigvgan"
+        flavor = "bigvgan" if use_bigvgan else "vocos"  # the vocoder's paired mel front end
         if s.demo_tiny:
-            mel_cfg = MelConfig(n_mels=20)
+            mel_cfg = MelConfig(n_mels=20, flavor=flavor)
             dit_cfg = DiTConfig(dim=64, depth=2, heads=2, dim_head=32, ff_mult=2, mel_dim=20, text_num_embeds=256,
                                 text_dim=32, conv_layers=1, max_pos=1024)
             voc_cfg = VocosConfig(input_channels=20, dim=48, intermediate_dim=96, num_layers=2)
+            bcfg = BigVGANConfig.demo_tiny()
             tok = Tokenizer(_LATIN_VOCAB)
-            dit_params, voc_params = init_dit_numpy(dit_cfg, seed=0), init_vocos_numpy(voc_cfg, seed=1)
-            engine_cfg = EngineConfig(mel=mel_cfg, vocoder=voc_cfg, compute_dtype="float32",
-                                      duration_buckets=(128, 256, 512), text_pad=128)
+            dit_params = init_dit_numpy(dit_cfg, seed=0)
+            voc_params = init_bigvgan_numpy(bcfg, seed=1) if use_bigvgan else init_vocos_numpy(voc_cfg, seed=1)
+            engine_kw = dict(compute_dtype="float32", duration_buckets=(128, 256, 512), text_pad=128)
         else:
-            dit_params = load_checkpoint_tree(s.tts_ckpt)
-            voc_params = load_checkpoint_tree(s.vocoder_ckpt)
+            mel_cfg, voc_cfg = MelConfig(flavor=flavor), VocosConfig()
+            bcfg = BigVGANConfig(mel_dim=mel_cfg.n_mels)
+            dit_params = load_checkpoint_tree(s.tts_ckpt, "f5")
+            voc_params = load_checkpoint_tree(s.vocoder_ckpt, "bigvgan" if use_bigvgan else "vocos", bcfg)
             tok = Tokenizer.from_file(s.tts_vocab)
             dit_cfg = DiTConfig(text_num_embeds=tok.vocab_size)  # F5-TTS Base
-            voc_cfg = VocosConfig()
-            engine_cfg = EngineConfig(mel=MelConfig(), vocoder=voc_cfg, compute_dtype=s.dtype)
+            engine_kw = dict(compute_dtype=s.dtype)
+        engine_cfg = EngineConfig(mel=mel_cfg, vocoder=voc_cfg, **engine_kw,
+                                  **({"vocoder_type": "bigvgan", "bigvgan": bcfg} if use_bigvgan else {}))
 
         if s.cfg_interval or s.cfg_cache > 1 or s.ode_method or s.nfe:
             # the euler-only accelerations pick euler (Settings refuses them

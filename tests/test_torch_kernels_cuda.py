@@ -559,3 +559,39 @@ def test_ablate_attention_occupancy_control_changes_nothing_but_occupancy(dev):
     assert torch.equal(out, t_abl.ablate_attention("unpacked", bias, q, k, v))
     with pytest.raises(ValueError, match="min_smem"):
         t_abl.ablate_attention("unpacked", bias, q, k, v, min_smem=t_abl.MAX_SMEM + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [True, False])
+def test_flash_attention_at_the_unett_shape(dev, masked):
+    """The E2-TTS UNetT's attention: n = 1024 frames + the time token = 1025
+    (the port does not pad to a multiple of 128), 16 x 64 heads, bf16,
+    head-0 RoPE, a key mask whose first column (the time token) is valid."""
+    g = torch.Generator().manual_seed(1025)
+    b, h, n, d = 2, 16, 1025, 64
+    q, k, v = (torch.randn((b, n, h * d), generator=g).to(dev, torch.bfloat16).view(b, n, h, d).transpose(1, 2)
+               for _ in range(3))
+    mask = (torch.arange(n)[None] < torch.tensor([[n], [700]])).to(dev) if masked else None
+    freqs = torch.as_tensor(rotary_freqs(n, d), device=dev)
+    before = t_flash.flash_attention.launches, t_flash.rope_rows.launches
+    out = t_flash.flash_attention(q, k, v, mask, rope_freqs=freqs)
+    assert (t_flash.flash_attention.launches, t_flash.rope_rows.launches) == (before[0] + 1, before[1] + 1)
+    ref = t_flash.flash_attention_plain(q.float(), k.float(), v.float(), mask, freqs)
+    rows = torch.ones((b, n), dtype=torch.bool, device=dev) if mask is None else mask
+    assert float(((out.float() - ref).abs() * rows[:, None, :, None]).max()) < 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1024, 1025])
+def test_conv_pos_kernel_without_a_mask(dev, n):
+    """The conv-pos pair as the MMDiT calls it, with no mask (``lens`` None):
+    every row is full; one launch of the fused pair."""
+    g = torch.Generator().manual_seed(n)
+    x = (torch.randn((2, n, 1024), generator=g) * 0.5).to(dev, torch.bfloat16)
+    w1, w2 = (((torch.rand((31, 64, 1024), generator=g) - 0.5) * 0.04).to(dev, torch.bfloat16) for _ in range(2))
+    b1, b2 = (((torch.rand(1024, generator=g) - 0.5) * 0.04).to(dev, torch.bfloat16) for _ in range(2))
+    before = t_conv.conv_pos.launches
+    out = t_conv.conv_pos(x, w1, b1, w2, b2)
+    assert t_conv.conv_pos.launches == before + 1
+    ref = t_conv.conv_pos_plain(x.float(), w1.float(), b1.float(), w2.float(), b2.float())
+    assert float((out.float() - ref).abs().max()) < 3e-2

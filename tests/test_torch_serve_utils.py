@@ -113,6 +113,11 @@ REQUESTS = [
     {"quality": "strict"}, {"quality": "best"}, {"quality": None}, {"response_format": "stream"},
     {"response_format": None}, {"text": 5}, {"text": None}, {"voice": 3}, {"voice": "narrator"},
     {"description": "calm."}, {"ref_text": "ref."}, {"text": "a", "model": "tts-1"},
+    # non-ASCII digits are refused, underscore digit groups in floats taken, as pydantic does
+    {"nfe_step": "\u0661\u0662"}, {"seed": "\uff13"}, {"speed": "\uff13"}, {"cfg_strength": "\uff13"},
+    {"cfg_strength": "1_0"}, {"cfg_strength": "1.2_5"}, {"cfg_strength": "1_0e0"}, {"cfg_strength": "1e0_0"},
+    {"cfg_strength": "1._5"}, {"cfg_strength": "1_e0"}, {"cfg_strength": "+_1"}, {"cfg_strength": " 1_0 "},
+    {"cfg_strength": "_1"}, {"cfg_strength": "1_"}, {"cfg_strength": "1__0"}, {"speed": "\u0661.5"},
 ]
 
 
