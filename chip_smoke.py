@@ -4,6 +4,7 @@
     python3 chip_smoke.py --kernels-only
     python3 chip_smoke.py --serving-only  # the build and phase 12 alone (no result lines)
     python3 chip_smoke.py --backbones-only  # the build, the F5 bench and phases 13-16 (no result lines)
+    python3 chip_smoke.py --distill-only  # the build and phase 17 alone (no result lines)
 
 Phases, each of which fails the run (non-zero exit) on any error:
 
@@ -44,9 +45,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
    launch counts per step against the design (44 forward launches with the
    per-block recompute, 44 backward launches = 22 x (dK/dV + dQ), 1 conv-pos
    launches), finite loss and gradient norm, params that move, step time and
-   mel-frames/s, a profiler breakdown of one step; and one step's gradients
+   mel-frames/s, a profiler breakdown of one step; one step's gradients
    through the kernels (bf16) against the fp32 plain path on a small
-   geometry;
+   geometry; the sample hook fired once by ``Trainer.fit`` (NFE 16 in fp32
+   from the EMA weights: exact launches, one ``.npy`` per prompt); two steps with
+   ``optimizer="adafactor"`` (finite loss, the launches of a step, its
+   optimizer state's bytes below half of AdamW's);
 7. decode attention (with phase 2): the decode-step attention kernel at the
    shapes of one Parler decode position (16 heads of 64, bf16: batch 16
    against a 503-position self-attention cache with a causal bound in the
@@ -148,7 +152,29 @@ Phases, each of which fails the run (non-zero exit) on any error:
 16. torch checkpoints: seeded F5-TTS Base and Vocos written as ``.pt`` files
    in the reference's torch layout and as ``.npz`` trees; ``ModelService``
    and ``cli/infer.build_engine`` give the same wave from either, bit for
-   bit.
+   bit;
+17. distillation (after phase 6): ``train/distill.py:make_distill_step`` with
+   the seeded F5-TTS Base as the teacher, bucket 1024, 128 cond frames,
+   b 2, K 8, m 4, bf16: three steps whose launches by stage must be exact
+   (rollout K and teacher solves 2Km serving forwards of 22 + 22 + 1; the
+   student's gradient forward 44 + 44 training launches and one conv-pos
+   launch through the masked differentiable route), the rows of every
+   forward, a finite loss and gradient norm, every student leaf moved, the
+   teacher bit-unchanged; wall time, device ms by stage (CUDA events), peak
+   memory and a device-only profile with the idle share; one step with a
+   single-branch teacher (b-row teacher forwards); the training kernels
+   under that step's own key mask at its 16-row gradient shape, one row's
+   keys all masked, against their fp32 plain versions; the student's
+   gradient half through the kernels against the plain path on shared fp32
+   states and targets at K 8 on the sway grid (fp32 and bf16; loss,
+   gradients, updated params), on a small geometry; the
+   distillation claim at ``tests/test_distill.py``'s micro geometry (40
+   steps bring the student's K-step error to the fine guided solve below
+   0.8x its error at init; head dim 16, so its attention is the plain
+   version); the distilled student served by ``TTSEngine`` with
+   ``student_sampler`` (exactly 8 x (22 + 22 + 1) launches, one solve); and
+   ``scripts/distill_certify.run`` at a reduced tiny size (three rows of
+   finite errors).
 
 The last lines are the card's name and power limit, one ``{"kernels": [...]}``
 JSON line and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -1679,7 +1705,7 @@ def train_phase(dev, model, shapes, tok, card: str, launches: dict) -> None:
     from f5tts_tpu_torch.ops.kernels.flash_attention import flash_attention, rope_rows
     from f5tts_tpu_torch.ops.kernels.flash_attention_train import flash_attention_train_fwd, flash_attention_train_bwd
     from f5tts_tpu_torch.train.data import synthetic_packed_batch
-    from f5tts_tpu_torch.train.trainer import TrainConfig, Trainer
+    from f5tts_tpu_torch.train.trainer import TrainConfig, Trainer, optimizer_state_bytes
     from f5tts_tpu_torch.train.tree import tree_leaves
 
     train_grad_parity(dev, tok)
@@ -1730,8 +1756,77 @@ def train_phase(dev, model, shapes, tok, card: str, launches: dict) -> None:
     profile_by_family("one train step", lambda: (trainer.step(state, batches[2]), torch.cuda.synchronize()), (
         ("flash_attention_train_fwd", ("fwd_lse",)), ("flash_attention_train_bwd", ("bwd_wgmma", "bwd_dkdv", "bwd_dq")),
         ("conv_pos", ("conv_pair", "conv_generic"))), top=8)
+    _sample_hook_check(trainer, state, model, batches[0], wrappers, per_step, launches)
+    adamw_bytes = optimizer_state_bytes(state["opt_state"])
     del state, trainer
     torch.cuda.empty_cache()
+
+    # two Base steps with Adafactor: its optimizer state beside AdamW's
+    trainer = Trainer(CFMConfig(model=model), TrainConfig(warmup_updates=2, optimizer="adafactor"),
+                      compute_dtype=torch.bfloat16, device=dev)
+    state, _ = trainer.init_or_resume()
+    af_bytes = optimizer_state_bytes(state["opt_state"])
+    for i in range(2):
+        before = {name: w.launches for name, w in wrappers.items()}
+        torch.cuda.synchronize()
+        t_step = time.perf_counter()
+        metrics = trainer.step(state, batches[0])
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        dt = time.perf_counter() - t_step
+        counts = {name: w.launches - before[name] for name, w in wrappers.items()}
+        log(f"adafactor step {i + 1} ({batches[0]['mel'].shape[0]} x {batches[0]['mel'].shape[1]}): loss {loss:.4f}, "
+            f"grad norm {gnorm:.4f}, {dt:.3f} s; launches {counts}")
+        check(np.isfinite(loss) and np.isfinite(gnorm), f"adafactor step {i + 1}: loss {loss}, grad norm {gnorm}")
+        check(counts == per_step, f"adafactor step {i + 1}: launches {counts}, want {per_step}")
+    log(f"optimizer state at F5-TTS Base: adafactor {af_bytes / 2**20:.1f} MiB (factored second moments, bf16 "
+        f"momentum) against adamw {adamw_bytes / 2**20:.1f} MiB = {af_bytes / adamw_bytes:.3f}x")
+    check(af_bytes < 0.5 * adamw_bytes, f"adafactor state {af_bytes} not below half of adamw's {adamw_bytes}")
+    del state, trainer
+    torch.cuda.empty_cache()
+
+
+def _sample_hook_check(trainer, state, model, batch, wrappers: dict, per_step: dict, launches: dict) -> None:
+    """``Trainer(sample_hook=...)`` fires the sample hook once (``sample_every``
+    1, one update) at NFE 16: Euler, 16 fused CFG-pair fp32 forwards of the
+    EMA weights, exact launches, one ``.npy`` per prompt."""
+    import shutil
+    import tempfile
+
+    from f5tts_tpu_torch.models.cfm import CFMConfig
+    from f5tts_tpu_torch.train.sample_hook import make_sample_hook, prompts_from_batch
+
+    out_dir = tempfile.mkdtemp(prefix="f5_samples_")
+    prompts = prompts_from_batch(batch)
+    inner = make_sample_hook(CFMConfig(model=model), out_dir, prompts, nfe_step=16)
+    fired = []
+
+    def hook(st, step_no):
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        metrics = inner(st, step_no)
+        fired.append((step_no, metrics, time.perf_counter() - t0, {k: w.launches for k, w in wrappers.items()}))
+
+    trainer.sample_hook, trainer.sample_every = hook, 1
+    try:
+        trainer.fit(state, [batch], total_updates=1)
+    finally:
+        trainer.sample_hook = trainer.sample_every = None
+    files = sorted(os.listdir(out_dir))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    check(len(fired) == 1, f"the sample hook fired {len(fired)} times, want 1")
+    step_no, metrics, secs, counts = fired[0]
+    forwards = 16  # Euler NFE 16: one fused 2b forward a step
+    # fp32 (the hook's default, as the CLI runs it): the attention's fp32 kernel applies RoPE itself (no
+    # pre-pass), and the conv-pos pair is two launches of the CUDA-core layer
+    want = {**{k: 0 for k in per_step}, "flash_attention": model.depth * forwards, "conv_pos": 2 * forwards}
+    log(f"sample hook at step {step_no} ({len(prompts)} prompts, NFE 16, fp32, EMA weights): {secs:.2f} s, launches "
+        f"{counts} (want {want}); files {files}; metrics {metrics}")
+    check(counts == want, f"sample hook launches {counts}, want {want}")
+    check(files == [f"step{step_no}_p{i}.npy" for i in range(len(prompts))], f"sample hook files {files}")
+    check(all(np.isfinite(v) and v > 0 for v in metrics.values()), f"sample hook metrics {metrics}")
+    for k in ("flash_attention", "rope_rows", "conv_pos"):
+        launches[k]["sample_hook"] = counts[k]
 
 
 # ---------------------------------------------------------------------------
@@ -2305,15 +2400,400 @@ def backbone_phases(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card: str, launc
     torch_ckpt_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok)
 
 
+# ---------------------------------------------------------------------------
+# step distillation (phase 17)
+# ---------------------------------------------------------------------------
+
+DISTILL_BUCKET, DISTILL_COND, DISTILL_BATCH, DISTILL_K, DISTILL_M = 1024, 128, 2, 8, 4
+DISTILL_CLAIM = 0.8  # the student's K-step error to the fine guided solve, against its error at init (test_distill.py)
+# bf16 kernels against fp32 plain on the same fp32 states and targets: at init the student is the teacher, so the
+# residual pred - target is ~5% of the velocity and bf16's rounding of pred is a large share of it (the plain path in
+# bf16 reads loss 1.0%, gradients 8.8% on the CPU at the parity geometry). The kernels' loss and updated params are
+# held to TRAIN_GRAD_RTOL, their gradients to this factor times the bf16 plain path's reading in the same run (never
+# tighter than TRAIN_GRAD_RTOL)
+DISTILL_BF16_OVER_PLAIN = 1.5
+DISTILL_STAGES = ("rollout", "teacher", "student", "update")
+DISTILL_WRAPPERS = ("flash_attention", "rope_rows", "conv_pos", "flash_attention_train_fwd",
+                    "flash_attention_train_bwd")
+DISTILL_MICRO = dict(dim=32, depth=1, heads=2, dim_head=16, ff_mult=2, mel_dim=8, text_num_embeds=16, text_dim=16,
+                     conv_layers=1, max_pos=64)  # tests/test_distill.py's geometry
+
+
+def _distill_wrappers() -> dict:
+    from f5tts_tpu_torch.ops.kernels.conv_pos import conv_pos
+    from f5tts_tpu_torch.ops.kernels.flash_attention import flash_attention, rope_rows
+    from f5tts_tpu_torch.ops.kernels.flash_attention_train import flash_attention_train_bwd, flash_attention_train_fwd
+
+    return {"flash_attention": flash_attention, "rope_rows": rope_rows, "conv_pos": conv_pos,
+            "flash_attention_train_fwd": flash_attention_train_fwd,
+            "flash_attention_train_bwd": flash_attention_train_bwd}
+
+
+class _StageMeter:
+    """The distill step's ``stage`` hook: a CUDA event and each wrapper's
+    launch count at the end of every stage, and the rows of every DiT
+    forward the step makes."""
+
+    def __init__(self, wrappers: dict):
+        self.wrappers = wrappers
+        self.reset()
+
+    def reset(self):
+        self.events, self.counts, self.rows = [], [], []
+        self.mark("start")
+
+    def mark(self, name: str):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events.append((name, ev))
+        self.counts.append((name, {k: w.launches for k, w in self.wrappers.items()}))
+
+    def split(self) -> tuple[dict, dict]:
+        """``(ms by stage, launches by stage)``; call after a synchronize."""
+        ms = {b[0]: a[1].elapsed_time(b[1]) for a, b in zip(self.events, self.events[1:])}
+        counts = {b[0]: {k: b[1][k] - a[1][k] for k in b[1]} for a, b in zip(self.counts, self.counts[1:])}
+        return ms, counts
+
+
+def _counting_forward(meter: _StageMeter, forward):
+    def fwd(*a, **kw):
+        meter.rows.append(a[2].shape[0])
+        if kw.get("training"):
+            meter.train_mask = a[8]  # the key mask of the student's gradient forward
+        return forward(*a, **kw)
+
+    return fwd
+
+
+def distill_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card: str, launches: dict) -> None:
+    """Phase 17: ``make_distill_step`` at F5-TTS Base (the seeded teacher of the
+    other phases) with exact launches per stage, the split and profile of a
+    step, a single-branch teacher step, bf16 + kernels against fp32 + plain,
+    the distillation claim at the JAX test's micro geometry, the student
+    served through the engine, and ``distill_certify.run`` at a reduced tiny
+    size."""
+    from f5tts_tpu_torch.engine.engine import EngineConfig, TTSEngine
+    from f5tts_tpu_torch.models.convert import dit_params_from_numpy
+    from f5tts_tpu_torch.models.dit import dit_forward
+    from f5tts_tpu_torch.scripts import distill_certify
+    from f5tts_tpu_torch.train import distill as tdist
+    from f5tts_tpu_torch.train.tree import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    wrappers = _distill_wrappers()
+    meter = _StageMeter(wrappers)
+    tdist.dit_forward = _counting_forward(meter, dit_forward)  # records each forward's rows; the kernels are untouched
+    try:
+        student = _distill_base_steps(dev, dit_cfg, dit_np, tok, card, launches, meter, wrappers, tdist)
+        _distill_masked_attention_check(dev, meter.train_mask, card)
+        _distill_parity(dev, tok, tdist, tree_leaves)
+    finally:
+        tdist.dit_forward = dit_forward
+
+    # the distillation claim on the card, at the JAX test's micro geometry
+    from f5tts_tpu_torch.models.convert import init_dit_numpy
+    from f5tts_tpu_torch.models.dit import DiTConfig
+    from f5tts_tpu_torch.sampling.euler import SamplerConfig, sample_cfm, sample_noise_from_seeds
+
+    micro = DiTConfig(**DISTILL_MICRO, attn_impl="plain")  # head dim 16: the attention kernels take 32, 64 and 128
+    n, ref = 32, 8
+
+    def micro_prompts(rng, batch=2):
+        cond = np.zeros((batch, n, 8), np.float32)
+        cond[:, :ref] = rng.standard_normal((batch, ref, 8)) * 0.5
+        return {"cond": cond, "cond_lens": np.full((batch,), ref, np.int32),
+                "text": rng.integers(0, 16, (batch, 6)).astype(np.int32),
+                "duration": rng.integers(24, n + 1, (batch,)).astype(np.int32),
+                "seeds": rng.integers(0, 1 << 30, (batch,)).astype(np.int32)}
+
+    t0 = time.perf_counter()
+    dcfg = tdist.DistillConfig(student_steps=4, substeps=4, learning_rate=3e-4, lr_decay_steps=40, seed=3)
+    m_teacher = dit_params_from_numpy(init_dit_numpy(micro, seed=0), dev, torch.float32)
+    conv_before = wrappers["conv_pos"].launches
+    m_student = tdist.distill(m_teacher, micro, dcfg, micro_prompts, steps=40, logger=None, device=dev)
+    conv_micro = wrappers["conv_pos"].launches - conv_before
+    ev = micro_prompts(np.random.default_rng(999))
+    kw = {k: torch.as_tensor(ev[k], device=dev) for k in ("cond", "cond_lens", "text", "duration")}
+    y0 = sample_noise_from_seeds(ev["seeds"], n, 8, kw["duration"])
+    fine = sample_cfm(m_teacher, micro, sampler=SamplerConfig(steps=64, cfg_strength=2.0), y0=y0, **kw)
+    gen = torch.zeros((2, n), dtype=torch.bool, device=dev)
+    for r in range(2):
+        gen[r, ref : int(ev["duration"][r])] = True
+
+    def err_to_fine(params):
+        got = sample_cfm(params, micro, sampler=tdist.student_sampler(dcfg), y0=y0, **kw)
+        return float(torch.sqrt(((fine - got) ** 2)[gen].mean()))
+
+    e_student, e_init = err_to_fine(m_student), err_to_fine(m_teacher)
+    log(f"distillation claim at the micro geometry (dim 32, depth 1, head dim 16: plain attention, the conv-pos "
+        f"kernels ran {conv_micro} times): 40 steps of K=4 m=4 in {time.perf_counter() - t0:.1f} s; student error "
+        f"to the 64-step guided solve {e_student:.5f} against {e_init:.5f} at init = {e_student / e_init:.3f}x "
+        f"(want < {DISTILL_CLAIM})")
+    check(np.isfinite(e_student) and e_student < DISTILL_CLAIM * e_init, f"micro distillation: {e_student} vs {e_init}")
+    check(conv_micro > 0, "the micro distillation ran no conv-pos kernel")
+
+    # the distilled Base student served through the engine: K Euler forwards, no CFG pair
+    s_np = tree_map(lambda t: t.detach().float().cpu().numpy(), student)
+    del student
+    torch.cuda.empty_cache()
+    engine = TTSEngine(s_np, dit_cfg, voc_np, tok, EngineConfig(
+        vocoder=voc_cfg, sampler=tdist.student_sampler(tdist.DistillConfig(student_steps=DISTILL_K))), device=dev)
+    solves = []
+    program = engine.bucket_program
+
+    def counted(*a, **kw_):
+        solves.append((kw_["steps"], kw_["cfg_strength"], a[0].shape[0]))
+        return program(*a, **kw_)
+
+    engine.bucket_program = counted
+    for w in wrappers.values():
+        w.launches = 0
+    text, secs, f0, ref_text = BACKBONE_REQUESTS[0]
+    _request_waves(engine, [(text, secs, f0, ref_text)], "distilled student")
+    got = {k: wrappers[k].launches for k in ("flash_attention", "rope_rows", "conv_pos")}
+    forwards = sum(steps for steps, _, _ in solves)
+    want = {"flash_attention": dit_cfg.depth * forwards, "rope_rows": dit_cfg.depth * forwards, "conv_pos": forwards}
+    log(f"distilled student served: solves (steps, cfg, rows) {solves}; launches {got} (want {want}: "
+        f"{DISTILL_K} x ({dit_cfg.depth} + {dit_cfg.depth} + 1) a solve)")
+    check(len(solves) == 1 and solves[0][:2] == (DISTILL_K, 0.0), f"student solves {solves}")
+    check(got == want and forwards == DISTILL_K, f"student serving launches {got}, want {want}")
+    del engine, s_np
+    torch.cuda.empty_cache()
+
+    # the certification script at a reduced tiny size
+    t0 = time.perf_counter()
+    res = distill_certify.run(geometry="tiny", toy_train_steps=100, student_steps=8, substeps=4, distill_steps=40,
+                              distill_batch=4, prompts=4, device=dev, log=None)
+    rows = [(r["name"], r["forwards"], round(r["mel_l2"], 5), round(r["x_recipe_err"], 3)) for r in res["rows"]]
+    log(f"distill_certify.run (tiny, toy-train 100, K 8, m 4, 40 distill steps, 4 prompts) in "
+        f"{time.perf_counter() - t0:.1f} s: recipe error to truth {res['recipe_err']:.5f}; rows "
+        f"(name, forwards, mel-L2, x recipe) {rows}")
+    check(len(res["rows"]) == 3 and all(np.isfinite(r["mel_l2"]) and np.isfinite(r["mcd_db"]) for r in res["rows"]),
+          f"distill_certify rows {res['rows']}")
+    log(f"distillation phase took {time.perf_counter() - t_phase:.1f} s on {card}")
+
+
+def _distill_base_steps(dev, dit_cfg, dit_np, tok, card, launches, meter, wrappers, tdist):
+    """Three steps of the CFG-pair teacher and one of a single-branch teacher
+    at F5-TTS Base, bucket 1024, bf16; returns the student."""
+    import dataclasses
+
+    from f5tts_tpu_torch.models.convert import dit_params_from_numpy
+    from f5tts_tpu_torch.scripts.distill_certify import make_prompt_fn
+    from f5tts_tpu_torch.train.tree import tree_leaves
+
+    b, K, m, depth = DISTILL_BATCH, DISTILL_K, DISTILL_M, dit_cfg.depth
+    kc = max(c for c in range(1, K + 1) if K % c == 0 and c * b <= 16)  # distill_certify's auto chunk
+    dcfg = tdist.DistillConfig(student_steps=K, substeps=m, loss_chunk=0 if kc >= K else kc)
+    optimizer, step = tdist.make_distill_step(dit_cfg, dcfg, torch.bfloat16)
+    t0 = time.perf_counter()
+    teacher = dit_params_from_numpy(dit_np, dev, torch.float32)
+    frozen = {k: t.clone() for k, t in tree_leaves(teacher)}
+    student = tdist.copy_params(teacher, dev)
+    opt_state = optimizer.init(student)
+    watch = {k: t.detach().clone() for k, t in tree_leaves(student)}
+    log(f"distill state at Base (teacher, student, AdamW) in {time.perf_counter() - t0:.1f} s; loss chunk "
+        f"{dcfg.loss_chunk or K} of K = {K} ({(dcfg.loss_chunk or K) * b} gradient rows)")
+    prompt_fn = make_prompt_fn(dit_cfg, b, DISTILL_BUCKET, DISTILL_COND)
+    rng = np.random.default_rng(0)
+    batches = [prompt_fn(rng) for _ in range(3)]
+    serving_fwd = K + 2 * K * m
+    want_stage = {
+        "rollout": {"flash_attention": depth * K, "rope_rows": depth * K, "conv_pos": K},
+        "teacher": {"flash_attention": depth * 2 * K * m, "rope_rows": depth * 2 * K * m, "conv_pos": 2 * K * m},
+        "student": {"flash_attention_train_fwd": 2 * depth, "flash_attention_train_bwd": 2 * depth, "conv_pos": 1},
+        "update": {},
+    }
+    want_rows = [b] * K + [2 * b] * (2 * K * m) + [(dcfg.loss_chunk or K) * b] * (K // (dcfg.loss_chunk or K))
+    for w in wrappers.values():
+        w.launches = 0
+    times, splits = [], []
+    for i, batch in enumerate(batches):
+        meter.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t_step = time.perf_counter()
+        metrics = step(student, opt_state, teacher, batch, stage=meter.mark)
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t_step
+        ms, counts = meter.split()
+        counts = {st: {k: v for k, v in c.items() if v} for st, c in counts.items()}
+        times.append(dt)
+        splits.append(ms)
+        log(f"distill step {i + 1} (Base, b {b}, bucket {DISTILL_BUCKET}, K {K}, m {m}, bf16): loss {loss:.5f}, grad "
+            f"norm {gnorm:.4f}, {dt:.3f} s; ms by stage {{{', '.join(f'{k}: {v:.1f}' for k, v in ms.items())}}}; peak "
+            f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches by stage {counts}")
+        check(np.isfinite(loss) and np.isfinite(gnorm) and gnorm > 0, f"distill step {i + 1}: {loss}, {gnorm}")
+        check(all(counts[st] == {k: v for k, v in want_stage[st].items() if v} for st in DISTILL_STAGES),
+              f"distill step {i + 1}: launches by stage {counts}, want {want_stage}")
+        check(meter.rows == want_rows, f"distill step {i + 1}: rows of each forward {meter.rows}, want {want_rows}")
+    for name, w in wrappers.items():
+        launches[name]["distill"] = w.launches
+    total = {k: wrappers[k].launches // len(batches) for k in wrappers}
+    log(f"distill launches per step {total} = serving kernels on {serving_fwd} forwards (K + 2Km; "
+        f"{depth} + {depth} + 1 each), the training kernels and one masked differentiable conv-pos on the gradient "
+        f"forward")
+    moved = sum(not torch.equal(watch[k], t.detach()) for k, t in tree_leaves(student))
+    unchanged = all(torch.equal(frozen[k], t) for k, t in tree_leaves(teacher))
+    log(f"student: {moved} of {len(watch)} leaves moved over {len(batches)} steps; teacher bit-unchanged: {unchanged}")
+    check(moved == len(watch), "some student leaves did not move")
+    check(unchanged, "the teacher's tensors changed")
+    del watch, frozen
+    steady = times[1:]
+    med = statistics.median(steady)
+    split_med = {st: statistics.median(s[st] for s in splits[1:]) for st in DISTILL_STAGES}
+    log(f"distill step at Base on {card}: wall {[round(t, 4) for t in times]} s (first warms up), median of the "
+        f"later {med:.4f} s; device ms by stage (CUDA events, median): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in split_med.items()))
+    profile_by_family("one distill step (Base, K 8, m 4, b 2, bf16)",
+                      lambda: (step(student, opt_state, teacher, batches[0]), torch.cuda.synchronize()),
+                      (*BENCH_FAMILIES[:3], ("flash_attention_train_fwd", ("fwd_lse",)),
+                       ("flash_attention_train_bwd", ("bwd_wgmma",))), top=8, device_only=True, wall_plain_ms=med * 1e3)
+
+    # one step with a single-branch teacher (a distilled student as the teacher): b-row teacher forwards
+    s_cfg = dataclasses.replace(dcfg, teacher_single_branch=True)
+    _, s_step = tdist.make_distill_step(dit_cfg, s_cfg, torch.bfloat16)
+    meter.reset()
+    torch.cuda.synchronize()
+    t_step = time.perf_counter()
+    metrics = s_step(student, opt_state, teacher, batches[1], stage=meter.mark)
+    loss = float(metrics["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t_step
+    ms, counts = meter.split()
+    want_single = [b] * K + [b] * (2 * K * m) + want_rows[K + 2 * K * m:]
+    log(f"distill step with a single-branch teacher: loss {loss:.5f}, {dt:.3f} s; ms by stage "
+        f"{{{', '.join(f'{k}: {v:.1f}' for k, v in ms.items())}}}; teacher forwards of {b} rows")
+    check(np.isfinite(loss) and meter.rows == want_single, f"single-branch step: loss {loss}, rows {meter.rows}")
+    check(counts["teacher"]["flash_attention"] == depth * 2 * K * m, f"single-branch teacher launches {counts}")
+    del teacher, opt_state
+    torch.cuda.empty_cache()
+    return student
+
+
+def _distill_masked_attention_check(dev, key_mask, card: str) -> None:
+    """The training attention kernels under the key mask of the Base distill
+    step's gradient forward (16 rows of the prompts' ragged durations, K-fold),
+    its last row's keys all masked, at 16 heads of 64, bf16: o, lse, dq, dk,
+    dv against the fp32 plain versions with the unmasked rows' tolerances,
+    the ragged rows and the dead row each on its own scale."""
+    from f5tts_tpu_torch.ops.kernels import flash_attention_train as ft
+
+    h, d = 16, 64
+    mask = key_mask.clone()
+    mask[-1] = False
+    b, n = mask.shape
+    g = torch.Generator(device="cpu").manual_seed(17)
+    q, k = (torch.randn((b, h, n, d), generator=g).to(dev, torch.bfloat16) for _ in range(2))
+    v, do = _head_split(g, dev, torch.bfloat16, b, h, n, d)[:2]
+    o, lse = ft.flash_attention_train_fwd(q, k, v, mask)
+    grads = ft.flash_attention_train_bwd(q, k, v, o, lse, do, mask)
+    f32 = [t.float() for t in (q, k, v, do)]
+    ref_o, ref_lse = ft.flash_attention_train_fwd_plain(*f32[:3], mask)
+    refs = ft.flash_attention_train_bwd_plain(*f32[:3], ref_o, ref_lse, f32[3], mask)
+    torch.cuda.synchronize()
+    lens = [int(x) for x in mask.sum(-1)]
+    for what, rows in (("ragged rows", slice(0, b - 1)), ("all-masked row", slice(b - 1, b))):
+        err_o = float((o[rows].float() - ref_o[rows]).abs().max())
+        err_lse = float((lse[rows] - ref_lse[rows]).abs().max())
+        rels = [_rel_err(got[rows], ref[rows]) for got, ref in zip(grads, refs)]
+        log(f"train attention under the distill step's key mask ({b} x {h} x {n} x {d} bf16, valid keys per row "
+            f"{lens}), {what}: o err {err_o:.3e} (tol {ATTN_TOL}), lse err {err_lse:.3e} (tol {LSE_TOL}), dq/dk/dv "
+            f"relative {rels[0]:.3e}/{rels[1]:.3e}/{rels[2]:.3e} (tol {GRAD_TOL})")
+        check(np.isfinite(err_o) and err_o <= ATTN_TOL, f"masked train forward o error ({what}) {err_o}")
+        check(np.isfinite(err_lse) and err_lse <= LSE_TOL, f"masked train forward lse error ({what}) {err_lse}")
+        check(all(np.isfinite(rels)) and max(rels) <= GRAD_TOL, f"masked train backward error ({what}) {rels}")
+    del ref_o, ref_lse, refs, f32
+    fwd_ms = time_ms(lambda: ft.flash_attention_train_fwd(q, k, v, mask))
+    bwd_ms = time_ms(lambda: ft.flash_attention_train_bwd(q, k, v, o, lse, do, mask))
+    fwd0 = time_ms(lambda: ft.flash_attention_train_fwd(q, k, v))
+    bwd0 = time_ms(lambda: ft.flash_attention_train_bwd(q, k, v, o, lse, do))
+    log(f"train attention at the distill gradient shape on {card}: masked forward {fwd_ms:.4f} ms, backward "
+        f"{bwd_ms:.4f} ms; with no mask {fwd0:.4f} / {bwd0:.4f} ms (eager, one call each)")
+    del q, k, v, do, o, lse, grads
+    torch.cuda.empty_cache()
+
+
+def _distill_parity(dev, tok, tdist, tree_leaves) -> None:
+    """The student's gradient half of a distill step through the kernels
+    against the plain path, at K 8, m 4 on the sway grid and a small
+    geometry: both differentiate the loss on the same states and targets
+    (one fp32 plain rollout and teacher solve), from the same params. Held:
+    fp32 kernels against fp32 plain, and bf16 kernels against fp32 plain
+    beside the bf16 plain path's reading (bf16's own rounding). Printed: the
+    whole bf16 step, its own rollout and teacher included, against the fp32
+    step."""
+    import dataclasses
+
+    from f5tts_tpu_torch.models.convert import dit_params_from_numpy, init_dit_numpy
+    from f5tts_tpu_torch.models.dit import DiTConfig
+    from f5tts_tpu_torch.scripts.distill_certify import make_prompt_fn
+
+    small = DiTConfig(dim=256, depth=2, heads=4, dim_head=64, text_num_embeds=tok.vocab_size, text_dim=128,
+                      conv_layers=1)
+    plain = dataclasses.replace(small, attn_impl="plain", conv_pos_impl="plain")
+    teacher = dit_params_from_numpy(init_dit_numpy(small, seed=3), dev, torch.float32)
+    batch = make_prompt_fn(small, 2, 256, 64)(np.random.default_rng(4))
+    dcfg = tdist.DistillConfig(student_steps=DISTILL_K, substeps=DISTILL_M)
+    ctx = tdist.make_distill_step(plain, dcfg, torch.float32)[1].targets(tdist.copy_params(teacher, dev), teacher,
+                                                                          batch)
+
+    def half_step(cfg, dtype):
+        optimizer, step = tdist.make_distill_step(cfg, dcfg, dtype)
+        student = tdist.copy_params(teacher, dev)
+        loss, grads = step.gradients(student, ctx)
+        grads = {k: g.float().clone() for (k, _), g in zip(tree_leaves(student), grads)}
+        optimizer.update(student, list(grads.values()), optimizer.init(student))
+        return float(loss), grads, {k: t.detach().float() for k, t in tree_leaves(student)}
+
+    def full_step(cfg, dtype):
+        optimizer, step = tdist.make_distill_step(cfg, dcfg, dtype)
+        student = tdist.copy_params(teacher, dev)
+        m = step(student, optimizer.init(student), teacher, batch)
+        return float(m["loss"]), {k: t.detach().float() for k, t in tree_leaves(student)}
+
+    def rel(a, b):
+        num = sum(float(torch.sum((a[k] - b[k]) ** 2)) for k in b)
+        return (num / sum(float(torch.sum(b[k] ** 2)) for k in b)) ** 0.5
+
+    def errs(got, ref):
+        (l1, g1, p1), (l0, g0, p0) = got, ref
+        check(set(g1) == set(g0) == set(p0), "distill parity: the gradient leaves differ")
+        return abs(l1 - l0) / abs(l0), rel(g1, g0), rel(p1, p0)
+
+    where = "dim 256, depth 2, 4 x 64 heads, 2 x 256 frames, K 8, m 4, sway grid, shared fp32 targets"
+    ref = half_step(plain, torch.float32)
+    e32 = errs(half_step(small, torch.float32), ref)
+    e_plain = errs(half_step(plain, torch.bfloat16), ref)
+    e_bf16 = errs(half_step(small, torch.bfloat16), ref)
+    bound = max(TRAIN_GRAD_RTOL, DISTILL_BF16_OVER_PLAIN * e_plain[1])
+    for what, e, tol in (("fp32 kernels vs fp32 plain", e32, f"tol {TRAIN_GRAD_RTOL} each"),
+                         ("bf16 plain vs fp32 plain (bf16's own rounding)", e_plain, "the reading the next is held to"),
+                         ("bf16 kernels vs fp32 plain", e_bf16,
+                          f"tol {TRAIN_GRAD_RTOL} on the loss and params, {bound:.3e} on the gradients")):
+        log(f"distill gradient parity, {what} ({where}): loss relative {e[0]:.3e}, gradients relative L2 "
+            f"{e[1]:.3e}, updated params relative L2 {e[2]:.3e} ({tol})")
+    check(max(e32) <= TRAIN_GRAD_RTOL, f"distill parity (fp32 kernels): {e32}")
+    check(max(e_bf16[0], e_bf16[2]) <= TRAIN_GRAD_RTOL and e_bf16[1] <= bound,
+          f"distill parity (bf16 kernels): {e_bf16}")
+    (l1, p1), (l0, p0) = full_step(small, torch.bfloat16), full_step(plain, torch.float32)
+    log(f"distill step, bf16 kernels vs fp32 plain, each with its own rollout and teacher solves (printed only): "
+        f"loss {l1:.6f} vs {l0:.6f} (relative {abs(l1 - l0) / abs(l0):.3e}), updated params relative L2 "
+        f"{rel(p1, p0):.3e}")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--serving-only", action="store_true",
                     help="build the kernels and run only the serving phase (no result lines)")
     ap.add_argument("--backbones-only", action="store_true",
                     help="build the kernels and run only the F5 bench and phases 13-16 (no result lines)")
+    ap.add_argument("--distill-only", action="store_true",
+                    help="build the kernels and run only the distillation phase (no result lines)")
     ap.add_argument("--kernels-only", action="store_true",
                     help="build and check the kernels (and run the ablation), skip the engine, bench, int8, "
-                         "training and Parler phases")
+                         "training, distillation and Parler phases")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
@@ -2337,7 +2817,7 @@ def main():
 
     from f5tts_tpu_torch.ops.kernels.ablate_attention import ablate_attention
 
-    if args.serving_only or args.backbones_only:
+    if args.serving_only or args.backbones_only or args.distill_only:
         from f5tts_tpu_torch.models.convert import init_dit_numpy, init_vocos_numpy
         from f5tts_tpu_torch.models.dit import DiTConfig
         from f5tts_tpu_torch.models.vocos import VocosConfig
@@ -2346,9 +2826,11 @@ def main():
         tok = Tokenizer.from_file(os.path.join(HERE, "examples", "vocab.txt"))
         dit_cfg, voc_cfg = DiTConfig(text_num_embeds=tok.vocab_size), VocosConfig()
         dit_np, voc_np = init_dit_numpy(dit_cfg, seed=0), init_vocos_numpy(voc_cfg, seed=1)
-        launches = {name: {} for name in ("flash_attention", "rope_rows", "conv_pos")}
+        launches = {name: {} for name in DISTILL_WRAPPERS}
         if args.serving_only:
             serving_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card, launches)
+        elif args.distill_only:
+            distill_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card, launches)
         else:
             f5_bench = bench_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card)
             backbone_phases(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card, launches, f5_bench)
@@ -2373,10 +2855,11 @@ def main():
         int8_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card, launches, bf16_bench)
         serving_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card, launches)
         backbone_phases(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card, launches, bf16_bench)  # phases 13-16
-        del dit_np, voc_np
         train_phase(dev, dit_cfg, TRAIN_SHAPES, tok, card, launches)  # F5-TTS Base, dropout 0.1, kernels
+        distill_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card, launches)  # phase 17
+        del dit_np, voc_np
         parler_phase(dev, card, launches)  # indic-parler-tts width and depth, random weights
-        log(f"ablate_attention launches through the engine, int8, serving, training and Parler phases: "
+        log(f"ablate_attention launches through the engine, int8, serving, training, distillation and Parler phases: "
             f"{ablate_attention.launches} (want 0)")
         check(ablate_attention.launches == 0, "the ablation kernel ran on a serving or training path")
     for k in kernels:

@@ -21,7 +21,7 @@ from dataclasses import dataclass, field
 
 import torch
 
-from f5tts_tpu_torch.models.dit import DiTConfig, dit_forward
+from f5tts_tpu_torch.models.dit import DiTConfig
 from f5tts_tpu_torch.ops.masks import lens_to_mask, mask_from_frac_lengths
 
 
@@ -64,11 +64,16 @@ def cfm_draws(generator: torch.Generator, lens: torch.Tensor, n: int, mel_dim: i
 
 
 def cfm_loss(params, cfg: CFMConfig, draws: CFMDraws, mel: torch.Tensor, text: torch.Tensor, lens: torch.Tensor,
-             compute_dtype: torch.dtype = torch.float32):
+             compute_dtype: torch.dtype = torch.float32, forward_fn=None):
     """``(loss, aux)`` of one batch: ``mel (b, n, mel_dim)`` target (x1,
     padded), ``text (b, nt)`` ids (pad -1), ``lens (b,)`` valid frames. The
     forward runs in training mode (differentiable kernels, dropout,
-    per-block checkpointing)."""
+    per-block checkpointing). ``forward_fn`` defaults to the backbone of
+    ``cfg.model``'s type (DiT, UNetT or MMDiT)."""
+    if forward_fn is None:
+        from f5tts_tpu_torch.models import backbone_fns
+
+        forward_fn = backbone_fns(cfg.model)[1]
     b, n, _ = mel.shape
     dev = mel.device
     mask = lens_to_mask(lens, n)
@@ -83,8 +88,8 @@ def cfm_loss(params, cfg: CFMConfig, draws: CFMDraws, mel: torch.Tensor, text: t
     drop_audio_cond = torch.full((b,), draws.drop_audio or draws.drop_both, dtype=torch.bool, device=dev)
     drop_text = torch.full((b,), draws.drop_both, dtype=torch.bool, device=dev)
 
-    pred = dit_forward(params, cfg.model, phi, cond, text, t, drop_audio_cond, drop_text, mask=None,
-                       compute_dtype=compute_dtype, training=True, dropout_seed=draws.dropout_seed)
+    pred = forward_fn(params, cfg.model, phi, cond, text, t, drop_audio_cond, drop_text, mask=None,
+                      compute_dtype=compute_dtype, training=True, dropout_seed=draws.dropout_seed)
     se = torch.square(pred.float() - flow.float())
     denom = torch.clamp(span.float().sum() * se.shape[-1], min=1.0)
     loss = (se * span[..., None].float()).sum() / denom

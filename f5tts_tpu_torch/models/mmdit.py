@@ -9,10 +9,12 @@ projections with a ``dim_head``-wide table, so it rotates head 0 only (the
 reference's quirk).
 
 Kernels: the conv-position pair (no mask) goes through the conv-pos kernel
-wrapper. The joint attention is ``ops/attention.py:sdpa``, the plain
-attention: the JAX package runs it through XLA (``sdpa_xla``), not a Pallas
-kernel. The JAX package has no engine or CLI path for this backbone, and
-neither has the port.
+wrapper (with grad enabled, its differentiable route). The joint attention
+is ``ops/attention.py:sdpa``, the plain attention: the JAX package runs it
+through XLA (``sdpa_xla``), not a Pallas kernel. The JAX package has no engine or CLI path for this backbone, and
+neither has the port. Training (``mmdit_forward(training=True)``) runs each
+block under ``torch.utils.checkpoint`` (the JAX package remats each scanned
+block); dropout is not applied, as in the JAX MMDiT.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from f5tts_tpu_torch.models import modules as m
 from f5tts_tpu_torch.models.dit import _rope_table, _text_pos_table, block, stack_depth
@@ -100,8 +103,11 @@ def mmdit_forward(
     mask: torch.Tensor | None = None,  # (b, n) bool
     text_emb: torch.Tensor | None = None,
     compute_dtype: torch.dtype = torch.float32,
+    training: bool = False,
+    dropout_seed: int | None = None,  # accepted for the trainer's interface; no dropout (as in JAX)
 ) -> torch.Tensor:
-    """The MMDiT's velocity prediction ``(b, n, mel_dim)``."""
+    """The MMDiT's velocity prediction ``(b, n, mel_dim)``; with ``training``,
+    per-block activation checkpointing."""
     b, n, _ = x.shape
     if time.ndim == 0:
         time = time.expand(b)
@@ -118,7 +124,12 @@ def mmdit_forward(
     dev = str(x.device)
     freqs_x, freqs_c = _rope_table(n, cfg.dim_head, dev)[0], _rope_table(c.shape[1], cfg.dim_head, dev)[0]
     for i in range(stack_depth(params["blocks"])):
-        h, c = _block(block(params["blocks"], i), h, c, t, cfg.heads, freqs_x, freqs_c, mask, False)
+        blk = block(params["blocks"], i)
+        args = (blk, h, c, t, cfg.heads, freqs_x, freqs_c, mask, False)
+        if training:  # each block under activation checkpointing
+            h, c = checkpoint(_block, *args, use_reentrant=False, preserve_rng_state=False)
+        else:
+            h, c = _block(*args)
     h, _ = _block(params["final_block"], h, c, t, cfg.heads, freqs_x, freqs_c, mask, True)
     h = m.adaln_zero_final(params["norm_out"], h, t)
     return m.linear(params["proj_out"], h)

@@ -14,8 +14,9 @@ CPU tensor); ``impl="plain"`` calls the plain versions on any device.
 
 Training mode (``attention(training=True)``, ``dit_block(training=True)``)
 takes the differentiable kernels: RoPE on q/k in PyTorch, then
-``flash_attention_train``; the conv-pos pair without a mask is
-``conv_pos_train``. Dropout is inverted dropout drawn from a generator seeded
+``flash_attention_train``; with grad enabled the conv-pos pair is
+``conv_pos_train`` (the kernel forward with each row's ``lens``, the plain
+backward). Dropout is inverted dropout drawn from a generator seeded
 inside the layer from an explicit seed, so re-running a block (activation
 checkpointing) draws the same masks.
 """
@@ -151,17 +152,18 @@ def conv_pos_embedding(p, x, mask=None, kernel_size: int = 31, groups: int = 16,
     prefix (duration) mask applied to the input, between the convs (as the
     kernel's per-row ``lens``) and to the output, so every valid frame computes
     what an unpadded batch-1 call computes. ``impl='fused'`` takes the kernel
-    wrapper, ``'plain'`` its plain version."""
+    wrapper (with grad enabled, its differentiable form ``conv_pos_train``),
+    ``'plain'`` its plain version."""
     if p["conv1"]["w"].shape[0] != kernel_size:
         raise ValueError(f"conv_pos kernel width {p['conv1']['w'].shape[0]} != {kernel_size}")
     if mask is not None:
         x = _where_rows(mask, x)
     weights = (p["conv1"]["w"], p["conv1"]["b"], p["conv2"]["w"], p["conv2"]["b"])
-    if impl == "fused" and mask is None:  # full rows (training): the differentiable kernel pair
-        return conv_pos_train(x, *weights, groups)
     lens = mask.sum(-1).to(torch.int32) if mask is not None else None
-    fn = {"fused": conv_pos, "plain": conv_pos_plain}[impl]
-    y = fn(x, *weights, lens, groups)
+    if impl == "fused" and torch.is_grad_enabled():  # the differentiable kernel route (training)
+        y = conv_pos_train(x, *weights, lens, groups)
+    else:
+        y = {"fused": conv_pos, "plain": conv_pos_plain}[impl](x, *weights, lens, groups)
     if mask is not None:
         y = _where_rows(mask, y)
     return y

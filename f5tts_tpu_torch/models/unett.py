@@ -16,6 +16,13 @@ kernel takes any ``n`` (``ops/kernels/flash_attention.py``), so nothing is
 padded here: the blocks run at ``n + 1``. Padded rows change no valid row in
 the JAX package either, so the valid rows agree.
 
+Training (``unett_forward(training=True)``): the attention takes the
+differentiable kernels at ``n + 1`` (no pad), the conv-pos pair its
+differentiable route, and each block (with its skip merge) runs under
+``torch.utils.checkpoint``, as the JAX package remats each scanned block.
+Dropout is not applied, as in the JAX UNetT (``dropout_seed`` is accepted for
+the trainer's interface).
+
 Parameters are the JAX tree (``models/convert.py:unett_params_from_numpy``).
 """
 
@@ -25,6 +32,7 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from f5tts_tpu_torch.models import modules as m
 from f5tts_tpu_torch.models.dit import _rope_table, block, input_embed, stack_depth, text_embed
@@ -69,11 +77,19 @@ def unett_embed(params, cfg: UNetTConfig, text, seq_len: int, drop_text, valid_m
     return text_embed(params, cfg, text, seq_len, drop_text, valid_mask)
 
 
-def _attn_ff(blk, h, cfg: UNetTConfig, freqs, cos_sin, mask):
+def _attn_ff(blk, h, cfg: UNetTConfig, freqs, cos_sin, mask, training: bool = False):
     a = m.attention(blk["attn"], m.rms_norm(blk["attn_norm"], h), cfg.heads, freqs, mask, impl=cfg.attn_impl,
-                    rope_all_heads=cfg.rope_all_heads, rope_cos_sin=cos_sin)
+                    rope_all_heads=cfg.rope_all_heads, training=training, rope_cos_sin=cos_sin)
     h = a + h
     return m.feed_forward(blk["ff"], m.rms_norm(blk["ff_norm"], h)) + h
+
+
+def _merge_skip(blk, h, skip, cfg: UNetTConfig):
+    if cfg.skip_connect_type == "concat":
+        return m.linear(blk["skip_proj"], torch.cat([h, skip], dim=-1))
+    if cfg.skip_connect_type == "add":
+        return h + skip
+    return h
 
 
 def unett_forward(
@@ -88,8 +104,11 @@ def unett_forward(
     mask: torch.Tensor | None = None,  # (b, n) bool
     text_emb: torch.Tensor | None = None,
     compute_dtype: torch.dtype = torch.float32,
+    training: bool = False,
+    dropout_seed: int | None = None,  # accepted for the trainer's interface; no dropout (as in JAX)
 ) -> torch.Tensor:
-    """The UNetT's velocity prediction ``(b, n, mel_dim)`` (serving: no dropout)."""
+    """The UNetT's velocity prediction ``(b, n, mel_dim)``. With ``training``,
+    the differentiable kernels and per-block activation checkpointing."""
     b, n, _ = x.shape
     if time.ndim == 0:
         time = time.expand(b)
@@ -104,19 +123,21 @@ def unett_forward(
         mask = F.pad(mask, (1, 0), value=True)
     freqs, cos_sin = _rope_table(n + 1, cfg.dim_head, str(x.device))
 
+    def run(fn, *args):  # one block, under activation checkpointing in training
+        if training:
+            return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+        return fn(*args)
+
     half = stack_depth(params["first_half"])
     skips = []
     for i in range(half):
         skips.append(h)  # each block's input is its skip
-        h = _attn_ff(block(params["first_half"], i), h, cfg, freqs, cos_sin, mask)
+        blk = block(params["first_half"], i)
+        h = run(lambda h_in, blk=blk: _attn_ff(blk, h_in, cfg, freqs, cos_sin, mask, training), h)
     for i in range(half):
         blk = block(params["second_half"], i)
-        skip = skips.pop()
-        if cfg.skip_connect_type == "concat":
-            h = m.linear(blk["skip_proj"], torch.cat([h, skip], dim=-1))
-        elif cfg.skip_connect_type == "add":
-            h = h + skip
-        h = _attn_ff(blk, h, cfg, freqs, cos_sin, mask)
+        h = run(lambda h_in, skip, blk=blk: _attn_ff(blk, _merge_skip(blk, h_in, skip, cfg), cfg, freqs, cos_sin, mask,
+                                                     training), h, skips.pop())
 
     h = m.rms_norm(params["norm_out"], h)[:, 1 : n + 1]
     return m.linear(params["proj_out"], h)

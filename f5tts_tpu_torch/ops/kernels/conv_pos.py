@@ -158,22 +158,25 @@ class ConvPosTrain(torch.autograd.Function):
     """Forward through the kernel (``conv_pos``), backward by
     differentiating the plain formulation (the counterpart of the JAX
     package's ``_conv_pos_fused`` custom VJP; there is no backward kernel).
-    Every row is full length (training passes no mask)."""
+    ``lens (b,)`` zeroes each row's intermediate past its valid prefix, in the
+    kernel and in the plain backward alike (None = every row full length)."""
 
     @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2, groups):
+    def forward(ctx, x, w1, b1, w2, b2, lens, groups):
         ctx.groups = groups
-        ctx.save_for_backward(x, w1, b1, w2, b2)
-        return conv_pos(x, w1, b1, w2, b2, None, groups)
+        ctx.save_for_backward(x, w1, b1, w2, b2, lens)
+        return conv_pos(x, w1, b1, w2, b2, lens, groups)
 
     @staticmethod
     def backward(ctx, g):
-        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        *saved, lens = ctx.saved_tensors
+        inputs = [t.detach().requires_grad_(True) for t in saved]
         with torch.enable_grad():
-            y = conv_pos_plain(*inputs, None, ctx.groups)
-        return (*torch.autograd.grad(y, inputs, g), None)
+            y = conv_pos_plain(*inputs, lens, ctx.groups)
+        return (*torch.autograd.grad(y, inputs, g), None, None)
 
 
-def conv_pos_train(x, w1, b1, w2, b2, groups: int = 16):
-    """Differentiable ``conv_pos`` over full-length rows."""
-    return ConvPosTrain.apply(x, w1, b1, w2, b2, groups)
+def conv_pos_train(x, w1, b1, w2, b2, lens=None, groups: int = 16):
+    """Differentiable ``conv_pos``: the kernel forward, the plain backward;
+    ``lens (b,)`` int valid prefix per row (None = every row full)."""
+    return ConvPosTrain.apply(x, w1, b1, w2, b2, lens, groups)

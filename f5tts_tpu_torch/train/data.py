@@ -6,9 +6,9 @@
   with at most ``max_samples`` utterances, then a seeded shuffle of the
   batches (the same numpy RNG order as the JAX package, so both yield the same
   batches);
-- pad-collate to the batch max, rounded up to a ``frame_bucket`` multiple.
-
-Loading from a Hugging Face dataset is not ported.
+- pad-collate to the batch max, rounded up to a ``frame_bucket`` multiple;
+- ``from_hf_dataset`` takes an already-loaded (in-memory or local) Hugging
+  Face ``datasets.Dataset`` with decoded audio; it never touches the hub.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ class Item:
     wav_path: str | None
     text: str
     n_frames: int
+    hf_index: int | None = None  # row in the source HF dataset (survives filtering)
 
 
 class FramePackedDataset:
@@ -65,8 +66,34 @@ class FramePackedDataset:
         tok = Tokenizer.from_file(vocab_file) if vocab_file else Tokenizer.from_texts(texts)
         return cls(items, tok, mel_cfg)
 
+    @classmethod
+    def from_hf_dataset(cls, dataset, text_column: str = "text", audio_column: str = "audio",
+                        vocab_file: str = "", mel_cfg: MelConfig = MelConfig()):
+        """Items from a Hugging Face dataset whose rows carry decoded audio
+        (``{"array", "sampling_rate"}``); the log-mel is computed when a batch
+        is collated. Pass a loaded dataset object: nothing is downloaded."""
+        from f5tts_tpu_torch.text.tokenizer import Tokenizer
+
+        items, texts, arrays = [], [], []
+        for i, row in enumerate(dataset):
+            audio = row[audio_column]
+            arr, sr = np.asarray(audio["array"], np.float32), int(audio["sampling_rate"])
+            texts.append(row[text_column])
+            arrays.append((arr, sr))
+            items.append(Item(None, None, row[text_column], int(len(arr) / sr * mel_cfg.frames_per_second), hf_index=i))
+        tok = Tokenizer.from_file(vocab_file) if vocab_file else Tokenizer.from_texts(texts)
+        ds = cls(items, tok, mel_cfg)
+        ds._hf_arrays = arrays
+        return ds
+
     def _load_mel(self, idx: int) -> np.ndarray:
         it = self.items[idx]
+        if it.hf_index is not None and hasattr(self, "_hf_arrays"):
+            from f5tts_tpu_torch.audio.preprocess import resample
+            from f5tts_tpu_torch.ops.mel import bucketed_log_mel
+
+            arr, sr = self._hf_arrays[it.hf_index]
+            return bucketed_log_mel(resample(arr, sr, self.mel_cfg.sample_rate), self.mel_cfg, device="cpu")
         if it.mel_path:
             return np.load(it.mel_path).astype(np.float32)
         from f5tts_tpu_torch.audio.io import read_wav

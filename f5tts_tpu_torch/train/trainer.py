@@ -1,21 +1,31 @@
 """Flow-matching trainer on one device (counterpart of
 ``f5tts_tpu/train/trainer.py``).
 
-AdamW with optax's semantics, written out over the params tree:
+The optimizers follow optax's semantics, written out over the params tree:
 - the schedule (linear warmup 0 -> lr, then linear decay to 0) is read at the
   optimizer's update count *before* it is incremented, so the first update
   uses ``schedule(0) = 0`` (a ``LambdaLR`` stepping after the update would be
   one step ahead);
 - ``clip_by_global_norm``: ``g / norm * max_norm`` when ``norm >= max_norm``,
   with no ``+ 1e-6`` in the denominator (``clip_grad_norm_`` adds one);
-- Adam moments with bias correction, ``eps`` added to ``sqrt(v_hat)``, decoupled
-  weight decay on every leaf, ``p += -lr * update``.
+- AdamW (``optimizer="adamw"``): Adam moments with bias correction, ``eps``
+  added to ``sqrt(v_hat)``, decoupled weight decay on every leaf,
+  ``p += -lr * update``;
+- Adafactor (``optimizer="adafactor"``, the chain ``optax.adafactor`` builds
+  with the JAX trainer's arguments): second moments factored into row and
+  column means for leaves with two dims >= 128 (full for the others), decay
+  ``1 - (count + 1) ** -0.999``, each leaf's update clipped to RMS 1, scaled
+  by the learning rate, a bf16 momentum of 0.9 without bias correction (its
+  decay applied as optax applies it: 0.9 rounded to bf16), then
+  ``weight_decay * p`` added (not scaled by the learning rate, as in optax).
 Gradient accumulation averages micro-batch gradients with their weights (0
 for the empty micro-batches that pad a trailing group). The EMA updates after
-each step. Params, moments and EMA are fp32; the forward runs in
-``compute_dtype``. The optimizer updates the tensors in place.
+each step. Params, moments and EMA are fp32 (Adafactor's momentum bf16); the
+forward runs in ``compute_dtype``. The optimizer updates the tensors in
+place. ``Trainer(sample_hook=..., sample_every=...)`` synthesizes samples
+every ``sample_every`` (default ``save_every``) updates.
 
-Adafactor, the mesh (data/tensor parallel) and the sample hook are not ported.
+The mesh (data/tensor parallel) is not ported.
 """
 
 from __future__ import annotations
@@ -42,6 +52,14 @@ class TrainConfig:
     max_grad_accum: int = 1
     ema: EMAConfig = field(default_factory=EMAConfig)
     seed: int = 0
+    # "adafactor": factored second moments and a bf16 momentum in place of
+    # AdamW's two fp32 moments (the JAX trainer's stand-in for the
+    # reference's 8-bit AdamW, ``bnb_optimizer``)
+    optimizer: str = "adamw"  # "adamw" | "adafactor"
+
+    def __post_init__(self):
+        if self.optimizer not in ("adamw", "adafactor"):
+            raise ValueError(f"optimizer must be 'adamw' or 'adafactor', got {self.optimizer!r}")
 
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adamw's (the JAX trainer's) values
@@ -71,14 +89,17 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tensors))
 
 
-@torch.no_grad()
-def adamw_update(params, grads: list[torch.Tensor], opt_state: dict, cfg: TrainConfig) -> None:
-    """Clip ``grads`` by their global norm, then one AdamW update of the
-    params tree, all in place. ``grads`` follow ``tree_leaves(params)``."""
+def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> list[torch.Tensor]:
+    """optax's ``clip_by_global_norm``: ``g / norm * max_norm`` when ``norm >= max_norm``."""
     norm = global_norm(grads)
-    keep = norm < cfg.grad_clip
-    grads = [torch.where(keep, g, g / norm * cfg.grad_clip) for g in grads]
-    lr = lr_schedule(cfg)(opt_state["count"])
+    keep = norm < max_norm
+    return [torch.where(keep, g, g / norm * max_norm) for g in grads]
+
+
+@torch.no_grad()
+def adamw_apply(params, grads: list[torch.Tensor], opt_state: dict, lr, weight_decay: float) -> None:
+    """One AdamW update of the params tree at learning rate ``lr`` (the
+    schedule's value at ``opt_state["count"]``), in place; advances the count."""
     count = opt_state["count"] + 1
     bc1 = float(np.float32(1.0) - np.float32(ADAM_B1) ** np.float32(count))
     bc2 = float(np.float32(1.0) - np.float32(ADAM_B2) ** np.float32(count))
@@ -87,23 +108,113 @@ def adamw_update(params, grads: list[torch.Tensor], opt_state: dict, cfg: TrainC
         mu.mul_(ADAM_B1).add_(g, alpha=1 - ADAM_B1)
         nu.mul_(ADAM_B2).addcmul_(g, g, value=1 - ADAM_B2)
         update = (mu / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS)
-        update.add_(p, alpha=cfg.weight_decay)
+        update.add_(p, alpha=weight_decay)
         p.add_(update, alpha=-float(lr))
     opt_state["count"] = count
 
 
+# optax.adafactor as the JAX trainer configures it
+ADAFACTOR_MIN_DIM, ADAFACTOR_DECAY, ADAFACTOR_MOMENTUM, ADAFACTOR_EPS = 128, 0.999, 0.9, 1e-30
+ADAFACTOR_MOMENTUM_BF16 = float(torch.tensor(ADAFACTOR_MOMENTUM).to(torch.bfloat16))  # 0.8984375
+
+
+def factored_dims(shape) -> tuple[int, int] | None:
+    """The two largest axes a leaf's second moment is factored over (optax's
+    rule: the second largest at least ``ADAFACTOR_MIN_DIM``), or None."""
+    shape = tuple(int(d) for d in shape)
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < ADAFACTOR_MIN_DIM:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+def adafactor_init(params) -> dict:
+    """Adafactor state: per leaf the row and column second moments (factored
+    leaves) or the full one, the bf16 momentum, and the update count."""
+
+    def zeros(t, shape):
+        return torch.zeros(tuple(int(d) for d in shape), dtype=t.dtype, device=t.device)
+
+    def v_row(t):
+        dims = factored_dims(t.shape)
+        return zeros(t, np.delete(t.shape, dims[1]) if dims else (1,))
+
+    def v_col(t):
+        dims = factored_dims(t.shape)
+        return zeros(t, np.delete(t.shape, dims[0]) if dims else (1,))
+
+    def v(t):
+        return zeros(t, (1,) if factored_dims(t.shape) else t.shape)
+
+    return {"v_row": tree_map(v_row, params), "v_col": tree_map(v_col, params), "v": tree_map(v, params),
+            "momentum": tree_map(lambda t: torch.zeros_like(t, dtype=torch.bfloat16), params), "count": 0}
+
+
+@torch.no_grad()
+def adafactor_apply(params, grads: list[torch.Tensor], opt_state: dict, lr, weight_decay: float) -> None:
+    """One Adafactor update of the params tree at learning rate ``lr``, in
+    place; advances the count."""
+    t = np.float32(opt_state["count"] + 1)
+    decay = float(np.float32(1.0) - t ** np.float32(-ADAFACTOR_DECAY))
+    keep = float(np.float32(1.0) - np.float32(decay))
+    state_leaves = [tree_leaves(opt_state[k]) for k in ("v_row", "v_col", "v", "momentum")]
+    for (_, p), g, (_, vr), (_, vc), (_, v), (_, mom) in zip(tree_leaves(params), grads, *state_leaves):
+        g2 = g * g + ADAFACTOR_EPS
+        dims = factored_dims(p.shape)
+        if dims is not None:
+            d1, d0 = dims
+            vr.mul_(decay).add_(g2.mean(d0) * keep)
+            vc.mul_(decay).add_(g2.mean(d1) * keep)
+            row_col_mean = vr.mean(d1 - 1 if d1 > d0 else d1, keepdim=True)
+            update = g * torch.rsqrt(vr / row_col_mean).unsqueeze(d0) * torch.rsqrt(vc).unsqueeze(d1)
+        else:
+            v.mul_(decay).add_(g2 * keep)
+            update = g * torch.rsqrt(v)
+        update = update / torch.clamp_min(torch.sqrt(torch.mean(update * update)), 1.0)  # clip_by_block_rms(1)
+        update = update * float(lr)
+        # optax's ``0.9 * accumulator`` takes the weakly typed 0.9 in the accumulator's bf16 (0.8984375);
+        # jitted, the product and the sum stay fp32
+        update = (1 - ADAFACTOR_MOMENTUM) * update + ADAFACTOR_MOMENTUM_BF16 * mom.float()
+        mom.copy_(update)
+        p.sub_(update + weight_decay * p)
+    opt_state["count"] = opt_state["count"] + 1
+
+
+def init_opt_state(params, optimizer: str = "adamw") -> dict:
+    if optimizer == "adafactor":
+        return adafactor_init(params)
+    return {"mu": tree_map(torch.zeros_like, params), "nu": tree_map(torch.zeros_like, params), "count": 0}
+
+
+@torch.no_grad()
+def optimizer_update(params, grads: list[torch.Tensor], opt_state: dict, optimizer: str, lr, weight_decay: float,
+                     clip: float) -> None:
+    """Clip ``grads`` (which follow ``tree_leaves(params)``) by their global
+    norm, then one ``optimizer`` ("adamw" or "adafactor") update of the params
+    tree at learning rate ``lr``, all in place."""
+    grads = clip_by_global_norm(grads, clip)
+    apply = adafactor_apply if optimizer == "adafactor" else adamw_apply
+    apply(params, grads, opt_state, lr, weight_decay)
+
+
+def optimizer_state_bytes(opt_state: dict) -> int:
+    return sum(t.numel() * t.element_size() for _, t in tree_leaves(opt_state) if isinstance(t, torch.Tensor))
+
+
 def init_train_state(model_cfg: CFMConfig, train_cfg: TrainConfig, device, params_np: dict | None = None) -> dict:
     """Fresh train state: fp32 params (a copy of ``params_np``, e.g. JAX params
-    as numpy, or a seeded ``init_dit_numpy``) that require grad, zero Adam
-    moments, an EMA copy, step 0."""
-    from f5tts_tpu_torch.models.convert import dit_params_from_numpy, init_dit_numpy
+    as numpy, or the backbone's seeded numpy init) that require grad, zeroed
+    optimizer state, an EMA copy, step 0."""
+    from f5tts_tpu_torch.models import backbone_fns
+    from f5tts_tpu_torch.models.convert import params_from_numpy
 
-    tree = params_np if params_np is not None else init_dit_numpy(model_cfg.model, seed=train_cfg.seed)
-    params = tree_map(lambda t: t.detach().clone().requires_grad_(True),
-                      dit_params_from_numpy(tree, device, torch.float32))
+    tree = params_np if params_np is not None else backbone_fns(model_cfg.model)[0](model_cfg.model, seed=train_cfg.seed)
+    params = tree_map(lambda t: t.detach().clone().requires_grad_(True), params_from_numpy(tree, device, torch.float32))
     return {
         "params": params,
-        "opt_state": {"mu": tree_map(torch.zeros_like, params), "nu": tree_map(torch.zeros_like, params), "count": 0},
+        "opt_state": init_opt_state(params, train_cfg.optimizer),
         "ema": ema_init(params),
         "step": 0,
     }
@@ -143,7 +254,9 @@ def train_step(state: dict, batch: dict, draws: list, model_cfg: CFMConfig, trai
             aux_sum[k] = aux_sum.get(k, 0.0) + w * v.detach().float()
     grads = [t.grad if t.grad is not None else torch.zeros_like(t) for t in leaves]
     gnorm = global_norm(grads)
-    adamw_update(params, grads, state["opt_state"], train_cfg)
+    opt_state = state["opt_state"]
+    optimizer_update(params, grads, opt_state, train_cfg.optimizer, lr_schedule(train_cfg)(opt_state["count"]),
+                     train_cfg.weight_decay, train_cfg.grad_clip)
     for t in leaves:
         t.grad = None
     state["step"] += 1
@@ -194,7 +307,8 @@ class Trainer:
 
     def __init__(self, model_cfg: CFMConfig, train_cfg: TrainConfig = TrainConfig(),
                  compute_dtype: torch.dtype = torch.bfloat16, checkpoint_dir: str | None = None,
-                 log_every: int = 50, save_every: int = 10_000, logger=None, device=None):
+                 log_every: int = 50, save_every: int = 10_000, logger=None, device=None,
+                 sample_hook=None, sample_every: int | None = None):
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg
         self.compute_dtype = compute_dtype
@@ -202,11 +316,13 @@ class Trainer:
         self.log_every = log_every
         self.save_every = save_every
         self.logger = logger
+        self.sample_hook = sample_hook  # callable(state, step): periodic sample synthesis
+        self.sample_every = sample_every  # the hook's cadence; None = save_every
         self.device = resolve_device(device)
         self.generator = torch.Generator(device=self.device).manual_seed(train_cfg.seed + 1)
 
     def init_or_resume(self) -> tuple[dict, int]:
-        """A fresh state (params from ``init_dit_numpy`` with the config's
+        """A fresh state (params from the backbone's numpy init with the config's
         seed), or the newest readable checkpoint's (a torn newest step falls
         back to the previous one)."""
         if self.checkpoint_dir:
@@ -255,4 +371,6 @@ class Trainer:
                 from f5tts_tpu_torch.train.checkpoint import save_state
 
                 save_state(self.checkpoint_dir, step_no, state)
+            if self.sample_hook and step_no % (self.sample_every or self.save_every) == 0:
+                self.sample_hook(state, step_no)
         return state

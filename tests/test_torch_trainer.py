@@ -51,7 +51,7 @@ def test_lr_schedule_matches_optax_counts():
 
 @pytest.mark.parametrize("clip", [1e-3, 1e3])  # clipping on every step / never
 def test_adamw_update_matches_optax(clip):
-    """Three updates of ``adamw_update`` against optax's clip + adamw chain on
+    """Three AdamW ``optimizer_update``s against optax's clip + adamw chain on
     the same random tree: rtol 1e-6 (fp32 elementwise, op order differs)."""
     cfg = ttrainer.TrainConfig(learning_rate=1e-2, warmup_updates=2, total_updates=10, grad_clip=clip)
     rng = np.random.default_rng(0)
@@ -66,7 +66,8 @@ def test_adamw_update_matches_optax(clip):
         grads = jax.tree.map(lambda a: (rng.standard_normal(a.shape) * 10.0 ** (i - 1)).astype(np.float32), tree)
         updates, jstate = opt.update(jax.tree.map(jnp.asarray, grads), jstate, jparams)
         jparams = optax.apply_updates(jparams, updates)
-        ttrainer.adamw_update(params, [g for _, g in tree_leaves(_to_torch(grads))], opt_state, cfg)
+        ttrainer.optimizer_update(params, [g for _, g in tree_leaves(_to_torch(grads))], opt_state, "adamw",
+                                  ttrainer.lr_schedule(cfg)(opt_state["count"]), cfg.weight_decay, cfg.grad_clip)
         for (name, p), (_, r) in zip(tree_leaves(params), tree_leaves(jax.tree.map(np.asarray, jparams))):
             np.testing.assert_allclose(p.numpy(), r, rtol=1e-6, atol=1e-8, err_msg=f"step {i} {name}")
     assert opt_state["count"] == 3
