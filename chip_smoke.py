@@ -5,6 +5,7 @@
     python3 chip_smoke.py --serving-only  # the build and phase 12 alone (no result lines)
     python3 chip_smoke.py --backbones-only  # the build, the F5 bench and phases 13-16 (no result lines)
     python3 chip_smoke.py --distill-only  # the build and phase 17 alone (no result lines)
+    python3 chip_smoke.py --parallel-only  # the build and phase 18 alone (no result lines)
 
 Phases, each of which fails the run (non-zero exit) on any error:
 
@@ -174,7 +175,27 @@ Phases, each of which fails the run (non-zero exit) on any error:
    version); the distilled student served by ``TTSEngine`` with
    ``student_sampler`` (exactly 8 x (22 + 22 + 1) launches, one solve); and
    ``scripts/distill_certify.run`` at a reduced tiny size (three rows of
-   finite errors).
+   finite errors);
+18. multi-device (``parallel/``, the engine's and the trainer's mesh; the
+   card's machine has one H100 and NCCL refuses two ranks on one device):
+   (a) the production backend, a one-rank NCCL group (store on localhost),
+   mesh (1, 1): the Base engine's guided solve at the bench geometry is
+   bit-equal to the mesh-free engine's from the same seeds, with exactly
+   22 + 22 + 1 launches a forward; (b) tensor parallel 2 at full width as two
+   processes on the one card over gloo (its ``all_reduce`` takes CUDA
+   tensors through host memory): per forward model rank 0 launches
+   22 + 22 + 1 at 8 heads and rank 1 22 + 0 + 1 (global head 0's RoPE lives
+   on rank 0), the ranks' waves bit-equal, one fp32 Base forward against the
+   mesh-free one (relative L2), the bf16 solve's mel against the mesh-free
+   one; (c) in the same two processes, one fp32 Base train step at TP 2
+   (AdamW, then Adafactor) and at DP 2 (AdamW) on a reduced 4 x 1024-frame
+   batch, dropout on, the clip biting: loss, updated params and EMA against
+   the mesh-free step, 44 + 44 training launches per step per rank; (d) the
+   ring attention's per-shard body at p 4, n 4096 (b 2, 16 x 64, bf16) driven
+   in one process over the rotated blocks, one row's last 1100 keys masked
+   (a whole shard of them), against fp32 plain attention over the whole
+   sequence, the 4 hops' device time beside the serving kernel's on the
+   whole sequence.
 
 The last lines are the card's name and power limit, one ``{"kernels": [...]}``
 JSON line and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -2783,6 +2804,350 @@ def _distill_parity(dev, tok, tdist, tree_leaves) -> None:
         f"{rel(p1, p0):.3e}")
 
 
+# ---------------------------------------------------------------------------
+# multi-device (phase 18)
+# ---------------------------------------------------------------------------
+
+PAR_SOLVE_BATCH, PAR_SOLVE_NFE = 2, 20  # (b): the TP solve's rows (its all_reduces cross host memory over gloo)
+PAR_TP_MEL_REL = 5e-2  # (b): bf16 TP solve vs mesh-free bf16 solve, relative L2 of the mel (other bf16 solves: 5e-2)
+PAR_FWD_REL = 1e-4  # (b): fp32 TP forward vs mesh-free fp32 forward, relative L2
+PAR_TRAIN_BATCH = (4, 1024)  # (c): rows x frames of the reduced train batch
+PAR_TRAIN_LR, PAR_TRAIN_CLIP = 1e-4, 1e-2
+PAR_LOSS_RTOL = 1e-5  # (c): loss of a sharded step vs the mesh-free step, fp32
+PAR_PARAM_ATOL = 1e-2 * PAR_TRAIN_LR  # (c): AdamW's g / (|g| + eps) magnifies gradient rounding near eps
+PAR_RING = (2, 16, 4096, 64, 4)  # (d): b, h, n, d, p
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def _par_solve_inputs(dev, batch: int, n: int = 1024, ref_frames: int = 128, text_pad: int = 512):
+    rng = np.random.default_rng(0)
+    return (torch.as_tensor(rng.standard_normal((batch, n, 100)), dtype=torch.float32, device=dev),
+            torch.full((batch,), ref_frames, dtype=torch.int32, device=dev),
+            torch.as_tensor(rng.integers(0, 90, (batch, text_pad)), dtype=torch.int32, device=dev),
+            torch.full((batch,), n, dtype=torch.int32, device=dev), np.arange(batch))
+
+
+def _par_engine(dit_cfg, voc_cfg, dit_np, voc_np, tok, dev, batch: int, mesh=None, dtype: str = "bfloat16"):
+    from f5tts_tpu_torch.engine.engine import EngineConfig, TTSEngine
+
+    return TTSEngine(dit_np, dit_cfg, voc_np, tok, EngineConfig(
+        vocoder=voc_cfg, duration_buckets=(1024,), batch_buckets=(batch,), text_pad=512, compute_dtype=dtype),
+        device=dev, mesh=mesh)
+
+
+def _par_solve(engine, inputs, nfe: int):
+    from f5tts_tpu_torch.sampling.euler import nfe_to_steps
+
+    mel, wave = engine.bucket_program(*inputs, steps=nfe_to_steps(nfe, "ralston"), cfg_strength=2.0)
+    torch.cuda.synchronize()
+    return mel.float(), wave.float()
+
+
+def _par_forwards(nfe: int) -> int:
+    """Fused CFG-pair DiT forwards of a Ralston solve at ``nfe`` (two a step)."""
+    from f5tts_tpu_torch.sampling.euler import nfe_to_steps
+
+    return 2 * nfe_to_steps(nfe, "ralston")
+
+
+def _serving_wrappers() -> dict:
+    from f5tts_tpu_torch.ops.kernels.conv_pos import conv_pos
+    from f5tts_tpu_torch.ops.kernels.flash_attention import flash_attention, rope_rows
+
+    return {"flash_attention": flash_attention, "rope_rows": rope_rows, "conv_pos": conv_pos}
+
+
+def _train_wrappers() -> dict:
+    from f5tts_tpu_torch.ops.kernels.flash_attention_train import flash_attention_train_bwd, flash_attention_train_fwd
+
+    return {"flash_attention_train_fwd": flash_attention_train_fwd,
+            "flash_attention_train_bwd": flash_attention_train_bwd}
+
+
+def _par_train_cfgs(dit_cfg, optimizer: str):
+    from f5tts_tpu_torch.models.cfm import CFMConfig
+    from f5tts_tpu_torch.train.ema import EMAConfig
+    from f5tts_tpu_torch.train.trainer import TrainConfig
+
+    # update_after_step -1: the EMA moves on the first step (decay 0.37)
+    return CFMConfig(model=dit_cfg), TrainConfig(
+        learning_rate=PAR_TRAIN_LR, warmup_updates=0, total_updates=100, grad_clip=PAR_TRAIN_CLIP,
+        ema=EMAConfig(update_after_step=-1, update_every=1), optimizer=optimizer)
+
+
+def _par_worker(rank: int, world: int, out_dir: str) -> None:
+    """(b) and (c) on one rank of two processes sharing the card over gloo
+    (spawned by ``dryrun.spawn``, which starts the gloo group)."""
+    sys.path.insert(0, HERE)
+    from f5tts_tpu_torch.models.convert import dit_params_from_numpy, init_dit_numpy, init_vocos_numpy
+    from f5tts_tpu_torch.models.dit import DiTConfig, dit_forward
+    from f5tts_tpu_torch.models.vocos import VocosConfig
+    from f5tts_tpu_torch.parallel.mesh import build_mesh
+    from f5tts_tpu_torch.parallel.sharding import shard_params, unshard_params
+    from f5tts_tpu_torch.text.tokenizer import Tokenizer
+    from f5tts_tpu_torch.train.data import synthetic_packed_batch
+    from f5tts_tpu_torch.train.trainer import Trainer, init_train_state
+    from f5tts_tpu_torch.train.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)  # both ranks on the one card
+    torch.cuda.set_device(dev)
+    tp_mesh, dp_mesh = build_mesh(2, device=dev), build_mesh(1, device=dev)  # (1, 2) and (2, 1)
+    tok = Tokenizer.from_file(os.path.join(HERE, "examples", "vocab.txt"))
+    dit_cfg, voc_cfg = DiTConfig(text_num_embeds=tok.vocab_size), VocosConfig()
+    dit_np, voc_np = init_dit_numpy(dit_cfg, seed=0), init_vocos_numpy(voc_cfg, seed=1)
+    out = {}
+
+    # (b) the bf16 TP solve with its launch counts, and one fp32 forward
+    engine = _par_engine(dit_cfg, voc_cfg, dit_np, voc_np, tok, dev, PAR_SOLVE_BATCH, mesh=tp_mesh)
+    inputs = _par_solve_inputs(dev, PAR_SOLVE_BATCH)
+    _par_solve(engine, inputs, 2)  # warm up (cuBLAS, the kernels' first calls)
+    wrappers = _serving_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    mel, wave = _par_solve(engine, inputs, PAR_SOLVE_NFE)
+    out["solve_s"] = time.perf_counter() - t0
+    out["solve_launches"] = {k: w.launches for k, w in wrappers.items()}
+    out["mel"], out["wave"] = mel.cpu().numpy(), wave.cpu().numpy()
+    del engine
+    rng = np.random.default_rng(5)
+    x = torch.as_tensor(rng.standard_normal((2, 1024, 100)), dtype=torch.float32, device=dev)
+    text = torch.as_tensor(rng.integers(0, 90, (2, 256)), dtype=torch.int32, device=dev)
+    t, f = torch.tensor([0.3, 0.8], device=dev), torch.zeros((2,), dtype=torch.bool, device=dev)
+    with torch.no_grad():
+        p32 = shard_params(dit_params_from_numpy(dit_np, dev, torch.float32), tp_mesh)
+        out["fwd32"] = dit_forward(p32, dit_cfg, x, x, text, t, f, f, tp=tp_mesh["model"]).cpu().numpy()
+    del p32
+    torch.cuda.empty_cache()
+
+    # (c) one fp32 Base step per case; rank 0 holds each against the mesh-free step
+    rows, frames = PAR_TRAIN_BATCH
+    batch = synthetic_packed_batch(dit_cfg, frames, rows, seed=7)
+    twrap = _train_wrappers()
+    refs = {}
+    for case, mesh, opt in (("tp_adamw", tp_mesh, "adamw"), ("dp_adamw", dp_mesh, "adamw"),
+                            ("tp_adafactor", tp_mesh, "adafactor")):
+        model_cfg, train_cfg = _par_train_cfgs(dit_cfg, opt)
+        trainer = Trainer(model_cfg, train_cfg, compute_dtype=torch.float32, mesh=mesh)
+        state = trainer.shard(init_train_state(model_cfg, train_cfg, dev, dit_np))
+        for w in twrap.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = {k: float(v) for k, v in trainer.step(state, batch).items()}
+        torch.cuda.synchronize()
+        res = {"s": time.perf_counter() - t0, "launches": {k: w.launches for k, w in twrap.items()},
+               "metrics": metrics}
+        whole = {k: unshard_params(state[k], mesh) for k in ("params", "ema")}
+        del state, trainer
+        if rank == 0:
+            if opt not in refs:  # the mesh-free step on the same global batch
+                ref_trainer = Trainer(model_cfg, train_cfg, compute_dtype=torch.float32, device=dev)
+                ref_state = init_train_state(model_cfg, train_cfg, dev, dit_np)
+                ref_metrics = {k: float(v) for k, v in ref_trainer.step(ref_state, batch).items()}
+                refs[opt] = (ref_metrics, {k: ref_state[k] for k in ("params", "ema")})
+                del ref_state, ref_trainer
+            ref_metrics, ref_whole = refs[opt]
+            res["ref_metrics"] = ref_metrics
+            worst = {}
+            for part in ("params", "ema"):
+                for (name, a), (_, b) in zip(tree_leaves(whole[part]), tree_leaves(ref_whole[part])):
+                    d = float((a.detach() - b.detach()).abs().max())
+                    key = "key_bias" if name.endswith("to_k/b") else part
+                    worst[key] = max(worst.get(key, 0.0), d)
+            res["max_abs_diff"] = worst
+        out[case] = res
+        del whole
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"par_{rank}.pkl"), "wb") as fh:
+        import pickle
+
+        pickle.dump(out, fh)
+
+
+def _par_local_checks(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card: str, launches: dict) -> dict:
+    """(a) on this process: a one-rank NCCL group; returns the mesh-free
+    references (b) compares with."""
+    import torch.distributed as dist
+
+    from f5tts_tpu_torch.models.convert import dit_params_from_numpy
+    from f5tts_tpu_torch.models.dit import dit_forward
+    from f5tts_tpu_torch.parallel.launcher import global_mesh
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", world_size=1, rank=0)
+    try:
+        mesh = global_mesh(1, device=dev)
+        log(f"(a) one-rank NCCL group: backend {dist.get_backend()}, mesh {mesh.shape} on {mesh.device}")
+        inputs = _par_solve_inputs(dev, 8)
+        free = _par_engine(dit_cfg, voc_cfg, dit_np, voc_np, tok, dev, 8)
+        ref_mel, ref_wave = _par_solve(free, inputs, 20)
+        del free
+        meshed = _par_engine(dit_cfg, voc_cfg, dit_np, voc_np, tok, dev, 8, mesh=mesh)
+        wrappers = _serving_wrappers()
+        for w in wrappers.values():
+            w.launches = 0
+        mel, wave = _par_solve(meshed, inputs, 20)
+        got = {k: w.launches for k, w in wrappers.items()}
+        for k, c in got.items():
+            launches[k]["parallel_nccl"] = c
+        forwards = _par_forwards(20)
+        want = {"flash_attention": 22 * forwards, "rope_rows": 22 * forwards, "conv_pos": forwards}
+        same = torch.equal(mel, ref_mel) and torch.equal(wave, ref_wave)
+        log(f"(a) bench geometry (8 x 1024, 128 ref, text_pad 512, ralston NFE 20, CFG 2, bf16) on mesh (1, 1) "
+            f"against the mesh-free engine: mel and wave bit-equal {same}; launches {got} (want {want})")
+        check(same, "(a) the one-rank NCCL mesh's solve differs from the mesh-free engine's")
+        check(got == want, f"(a) launches {got}, want {want}")
+        del meshed
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # the mesh-free references of (b): the bf16 solve at (b)'s geometry, one fp32 forward
+    free = _par_engine(dit_cfg, voc_cfg, dit_np, voc_np, tok, dev, PAR_SOLVE_BATCH)
+    ref_mel, _ = _par_solve(free, _par_solve_inputs(dev, PAR_SOLVE_BATCH), PAR_SOLVE_NFE)
+    del free
+    rng = np.random.default_rng(5)
+    x = torch.as_tensor(rng.standard_normal((2, 1024, 100)), dtype=torch.float32, device=dev)
+    text = torch.as_tensor(rng.integers(0, 90, (2, 256)), dtype=torch.int32, device=dev)
+    t, f = torch.tensor([0.3, 0.8], device=dev), torch.zeros((2,), dtype=torch.bool, device=dev)
+    with torch.no_grad():
+        p32 = dit_params_from_numpy(dit_np, dev, torch.float32)
+        fwd32 = dit_forward(p32, dit_cfg, x, x, text, t, f, f)
+    del p32
+    torch.cuda.empty_cache()
+    return {"mel": ref_mel, "fwd32": fwd32}
+
+
+def _par_ring_check(dev, card: str, launches: dict) -> None:
+    """(d) the ring's per-shard body at p 4 over the rotated blocks, in one process."""
+    from f5tts_tpu_torch.ops.attention import sdpa
+    from f5tts_tpu_torch.ops.kernels.flash_attention import flash_attention
+    from f5tts_tpu_torch.ops.kernels.flash_attention_train import flash_attention_train_fwd
+    from f5tts_tpu_torch.parallel.ring_attention import local_transport, ring_body, seq_blocks
+
+    b, h, n, d, p = PAR_RING
+    g = torch.Generator(device=dev).manual_seed(11)
+    q, k, v = (torch.randn((b, h, n, d), generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+    mask = torch.ones((b, n), dtype=torch.bool, device=dev)
+    mask[1, n - 1100:] = False  # row 1: the last shard's keys all masked, and 76 of the one before
+    qb, kb, vb, mb = seq_blocks(q, p, 2), seq_blocks(k, p, 2), seq_blocks(v, p, 2), seq_blocks(mask, p, 1)
+    blocks = list(zip(kb, vb, mb))
+
+    def ring(r):
+        return ring_body(qb[r], kb[r], vb[r], mb[r], p, local_transport(blocks, r))
+
+    flash_attention_train_fwd.launches = 0
+    o = torch.cat([ring(r) for r in range(p)], 2)
+    torch.cuda.synchronize()
+    hops = flash_attention_train_fwd.launches
+    launches["flash_attention_train_fwd"]["parallel_ring"] = hops
+    ref = sdpa(q.float(), k.float(), v.float(), mask)
+    err = float((o.float() - ref).abs().max())
+    log(f"(d) ring body p {p}, n {n}, b {b}, {h} x {d} bf16, row 1's last 1100 keys masked: {hops} hop launches "
+        f"(want {p * p}); max abs error against fp32 plain attention over the whole sequence {err:.3e} "
+        f"(tol {ATTN_TOL})")
+    check(hops == p * p, f"(d) {hops} hop launches, want {p * p}")
+    check(np.isfinite(err) and err < ATTN_TOL, f"(d) ring body error {err}")
+
+    masks = [m.contiguous() for m in mb]  # as the transport hands the blocks over
+
+    def hops_only(r=0):
+        return [flash_attention_train_fwd(qb[r], kb[(r - i) % p], vb[(r - i) % p], masks[(r - i) % p])
+                for i in range(p)]
+
+    def whole():
+        return flash_attention(q, k, v, mask)
+
+    eager = [time_ms(fn) for fn in (lambda: ring(0), hops_only, whole)]
+    graph = [time_graph_ms([fn]) for fn in (lambda: ring(0), hops_only, whole)]
+    flops = 4 * b * h * n * n * d
+    log(f"(d) device time on {card}, in a CUDA graph (eager with host gaps, CUDA events): one rank's body (4 hops + "
+        f"lse merges) {graph[0]:.4f} ms ({eager[0]:.4f}), its 4 hop kernels alone {graph[1]:.4f} ms ({eager[1]:.4f}), "
+        f"the serving kernel (no RoPE) over the whole sequence {graph[2]:.4f} ms ({eager[2]:.4f}); 4 ranks' hops do "
+        f"the whole sequence's {flops / 1e9:.1f} GFLOP, one rank a quarter (bound, operations: "
+        f"{bound_ms(flops / p, 0, PEAK_BF16_FLOPS)[0]:.4f} ms a rank, {bound_ms(flops, 0, PEAK_BF16_FLOPS)[0]:.4f} ms "
+        f"the whole)")
+
+
+def parallel_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card: str, launches: dict) -> None:
+    """Phase 18: (a) a one-rank NCCL group; (b) and (c) two processes on the
+    one card over gloo, named as such; (d) the ring body in one process."""
+    import pickle
+    import tempfile
+
+    from f5tts_tpu_torch.parallel.dryrun import spawn
+
+    t_phase = time.perf_counter()
+    refs = _par_local_checks(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card, launches)
+
+    log("(b)/(c): two processes on the one card over gloo (NCCL refuses two ranks on one device; gloo's all_reduce "
+        "takes CUDA tensors through host memory)")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        spawn(_par_worker, 2, (out_dir,), timeout=600)
+        outs = []
+        for r in range(2):
+            with open(os.path.join(out_dir, f"par_{r}.pkl"), "rb") as fh:
+                outs.append(pickle.load(fh))
+    log(f"(b)/(c) spawn took {time.perf_counter() - t0:.1f} s")
+    forwards = _par_forwards(PAR_SOLVE_NFE)
+    for r, o in enumerate(outs):
+        want = {"flash_attention": 22 * forwards, "rope_rows": (22 if r == 0 else 0) * forwards, "conv_pos": forwards}
+        log(f"(b) rank {r}: TP 2 solve ({PAR_SOLVE_BATCH} x 1024, ralston NFE {PAR_SOLVE_NFE}, CFG 2, bf16, 8 heads a "
+            f"rank) {o['solve_s']:.3f} s wall (a correctness run over gloo, not a speed); launches "
+            f"{o['solve_launches']} (want {want})")
+        check(o["solve_launches"] == want, f"(b) rank {r} launches {o['solve_launches']}, want {want}")
+        for k, c in o["solve_launches"].items():
+            launches[k][f"parallel_tp_rank{r}"] = c
+    same = np.array_equal(outs[0]["wave"], outs[1]["wave"]) and np.array_equal(outs[0]["mel"], outs[1]["mel"])
+    log(f"(b) the two ranks' waves and mels bit-equal: {same}")
+    check(same, "(b) the ranks' waves differ")
+    ref_mel = refs["mel"].cpu().numpy()
+    mel_rel = float(np.linalg.norm(outs[0]["mel"] - ref_mel) / np.linalg.norm(ref_mel))
+    fwd_ref = refs["fwd32"].cpu().numpy()
+    fwd_rel = float(np.linalg.norm(outs[0]["fwd32"] - fwd_ref) / np.linalg.norm(fwd_ref))
+    log(f"(b) fp32 Base forward (2 x 1024) TP 2 vs mesh-free: relative L2 {fwd_rel:.3e} (tol {PAR_FWD_REL}); "
+        f"bf16 solve's mel vs mesh-free bf16: relative L2 {mel_rel:.3e} (tol {PAR_TP_MEL_REL})")
+    check(fwd_rel < PAR_FWD_REL, f"(b) fp32 TP forward off by {fwd_rel}")
+    check(mel_rel < PAR_TP_MEL_REL, f"(b) bf16 TP solve off by {mel_rel}")
+
+    want_train = {"flash_attention_train_fwd": 44, "flash_attention_train_bwd": 44}
+    for case in ("tp_adamw", "dp_adamw", "tp_adafactor"):
+        for r, o in enumerate(outs):
+            c = o[case]
+            log(f"(c) {case} rank {r}: step {c['s']:.3f} s (gloo), loss {c['metrics']['loss']:.6f}, grad norm "
+                f"{c['metrics']['grad_norm']:.4f}, launches {c['launches']} (want {want_train})")
+            check(c["launches"] == want_train, f"(c) {case} rank {r} launches {c['launches']}")
+            for k, n_l in c["launches"].items():
+                launches[k][f"parallel_{case}_rank{r}"] = n_l
+        c = outs[0][case]
+        ref = c["ref_metrics"]
+        loss_rel = abs(c["metrics"]["loss"] - ref["loss"]) / abs(ref["loss"])
+        worst = c["max_abs_diff"]
+        key_tol = 4 * PAR_TRAIN_LR if case == "tp_adafactor" else PAR_PARAM_ATOL
+        log(f"(c) {case} vs the mesh-free fp32 step ({PAR_TRAIN_BATCH[0]} x {PAR_TRAIN_BATCH[1]} frames, reduced "
+            f"batch): loss {c['metrics']['loss']:.6f} vs {ref['loss']:.6f} (rel {loss_rel:.2e}, tol {PAR_LOSS_RTOL}), "
+            f"grad norm {ref['grad_norm']:.4f} > clip {PAR_TRAIN_CLIP} (clipped); max abs diff params "
+            f"{worst['params']:.3e}, EMA {worst['ema']:.3e} (tol {PAR_PARAM_ATOL:.1e}), key bias "
+            f"{worst.get('key_bias', 0.0):.3e} (tol {key_tol:.1e})")
+        check(ref["grad_norm"] > PAR_TRAIN_CLIP, f"(c) {case}: the clip did not bite")
+        check(loss_rel < PAR_LOSS_RTOL, f"(c) {case}: loss off by {loss_rel}")
+        check(worst["params"] < PAR_PARAM_ATOL and worst["ema"] < PAR_PARAM_ATOL, f"(c) {case}: state off {worst}")
+        check(worst.get("key_bias", 0.0) < key_tol, f"(c) {case}: key bias off {worst}")
+
+    _par_ring_check(dev, card, launches)
+    log(f"phase 18 (multi-device) took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--serving-only", action="store_true",
@@ -2791,6 +3156,8 @@ def main():
                     help="build the kernels and run only the F5 bench and phases 13-16 (no result lines)")
     ap.add_argument("--distill-only", action="store_true",
                     help="build the kernels and run only the distillation phase (no result lines)")
+    ap.add_argument("--parallel-only", action="store_true",
+                    help="build the kernels and run only the multi-device phase (no result lines)")
     ap.add_argument("--kernels-only", action="store_true",
                     help="build and check the kernels (and run the ablation), skip the engine, bench, int8, "
                          "training, distillation and Parler phases")
@@ -2817,7 +3184,7 @@ def main():
 
     from f5tts_tpu_torch.ops.kernels.ablate_attention import ablate_attention
 
-    if args.serving_only or args.backbones_only or args.distill_only:
+    if args.serving_only or args.backbones_only or args.distill_only or args.parallel_only:
         from f5tts_tpu_torch.models.convert import init_dit_numpy, init_vocos_numpy
         from f5tts_tpu_torch.models.dit import DiTConfig
         from f5tts_tpu_torch.models.vocos import VocosConfig
@@ -2831,6 +3198,8 @@ def main():
             serving_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card, launches)
         elif args.distill_only:
             distill_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card, launches)
+        elif args.parallel_only:
+            parallel_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card, launches)
         else:
             f5_bench = bench_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card)
             backbone_phases(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card, launches, f5_bench)
@@ -2857,6 +3226,7 @@ def main():
         backbone_phases(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card, launches, bf16_bench)  # phases 13-16
         train_phase(dev, dit_cfg, TRAIN_SHAPES, tok, card, launches)  # F5-TTS Base, dropout 0.1, kernels
         distill_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card, launches)  # phase 17
+        parallel_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card, launches)  # phase 18
         del dit_np, voc_np
         parler_phase(dev, card, launches)  # indic-parler-tts width and depth, random weights
         log(f"ablate_attention launches through the engine, int8, serving, training, distillation and Parler phases: "

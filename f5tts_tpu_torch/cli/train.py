@@ -14,6 +14,13 @@ into ``<checkpoint-dir>/samples``. Runs on ``cuda`` unless ``--device cpu``;
 with no GPU and no ``--device cpu`` it raises. ``--train-config`` reads a
 YAML config (``configs/*.yaml``; PyYAML is imported only then; its
 ``bnb_optimizer`` maps to ``adafactor``).
+
+Multi-device: one process per device, started with the launcher's variables
+(``parallel/launcher.py``); with more than one process the CLI builds the
+``(data, model)`` mesh with ``--model-parallel`` ranks per model group::
+
+    COORDINATOR_ADDRESS=localhost:29500 NUM_PROCESSES=4 PROCESS_ID=$i LOCAL_RANK=$i \
+        python -m f5tts_tpu_torch.cli.train --smoke --model-parallel 2
 """
 
 from __future__ import annotations
@@ -68,6 +75,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--sample-nfe", type=int, default=16)
     p.add_argument("--sample-vocoder", default="",
                    help="converted Vocos .npz: the sample hook also writes 24 kHz wavs")
+    p.add_argument("--model-parallel", type=int, default=1,
+                   help="tensor-parallel ranks per model group (multi-process runs; see the module docstring)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--smoke", action="store_true", help="tiny model + synthetic data, 3 steps")
     p.add_argument("--train-config", default="", help="YAML training config (configs/*.yaml); flags override")
@@ -105,8 +114,14 @@ def main(argv=None):
 
     import torch
 
+    from f5tts_tpu_torch.parallel.launcher import global_mesh, init_distributed
     from f5tts_tpu_torch.train.metrics import JsonlLogger
     from f5tts_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    _, n_proc = init_distributed(device=args.device)
+    if n_proc == 1 and args.model_parallel > 1:
+        raise SystemExit("--model-parallel > 1 needs several processes (NUM_PROCESSES, see the module docstring)")
+    mesh = global_mesh(args.model_parallel, device=args.device) if n_proc > 1 else None
 
     name = "demo_tiny" if args.smoke else args.model
     model_cfg = resolve_model_cfg(name, args.vocab_file if name != "demo_tiny" else "")
@@ -119,7 +134,7 @@ def main(argv=None):
     trainer = Trainer(model_cfg, train_cfg, compute_dtype=getattr(torch, args.dtype),
                       checkpoint_dir=None if args.smoke else args.checkpoint_dir, log_every=args.log_every,
                       save_every=args.save_every, logger=logger, device=args.device,
-                      sample_every=args.sample_every or None)
+                      sample_every=args.sample_every or None, mesh=mesh)
     state, start = trainer.init_or_resume()
 
     def build_sample_hook(first_batch):
@@ -143,10 +158,13 @@ def main(argv=None):
         from f5tts_tpu_torch.train.data import synthetic_batches
 
         trainer.log_every = 1
-        batches = list(synthetic_batches(model_cfg.model, frames=256, batch=2, n_batches=3, seed=args.seed))
+        # the batch's rows divide over the mesh's data axis
+        smoke_batch = max(2, n_proc) if mesh is not None else 2
+        batches = list(synthetic_batches(model_cfg.model, frames=256, batch=smoke_batch, n_batches=3, seed=args.seed))
         trainer.sample_hook = build_sample_hook(batches[0])
         state = trainer.fit(state, batches, total_updates=3)
-        print(f"smoke ok: step={state['step']}")
+        if trainer.lead:
+            print(f"smoke ok: step={state['step']}")
         return state
 
     from f5tts_tpu_torch.train.data import FramePackedDataset

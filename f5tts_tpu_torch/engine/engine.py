@@ -32,12 +32,23 @@ step batcher's segments included. The vocoder is Vocos, or BigVGAN with
 ``vocoder_type="bigvgan"``; every decode goes through ``self._decode``. With
 ``quantization="int8"`` the DiT blocks' six linears are quantized after the
 dtype cast (W8A8, ``models/dit.py:quantize_dit_params``) and run through the
-``quant_matmul`` kernel. Multi-device serving is not ported yet.
+``quant_matmul`` kernel.
+
+Multi-device (``TTSEngine(mesh=...)``, ``parallel/mesh.py``): the backbone is
+sharded over the mesh's ``model`` axis (Megatron, ``parallel/sharding.py``)
+and the vocoder replicated. Every rank runs the same ``synthesize*`` calls
+(SPMD, as the JAX package's multi-host path) and returns the same wave; each
+rank's blocks run the serving kernels on its own heads (head-0 RoPE on model
+rank 0 only). ``bucket_program``, the step batcher and ``forward_fn``/
+``embed_fn`` see only local shards. The host's seed generator starts from a
+seed broadcast from rank 0, so requests without a seed draw the same noise on
+every rank. int8 under ``model > 1`` raises (``ROADMAP.md`` A.8).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from dataclasses import dataclass, field
 
@@ -152,20 +163,48 @@ class RequestPlan:
     cross_fade_duration: float
 
 
+def _shared_seed(mesh) -> int | None:
+    """None (fresh entropy) without a mesh; under one, a seed drawn on rank 0
+    and broadcast to every rank, so the ranks' seed generators agree."""
+    if mesh is None or mesh.world == 1:
+        return None
+    import torch.distributed as dist
+
+    seed = torch.tensor([int(np.random.default_rng().integers(0, 2**62))], dtype=torch.int64, device=mesh.device)
+    dist.broadcast(seed, src=0)
+    return int(seed.item())
+
+
 class TTSEngine:
     def __init__(self, dit_params, dit_cfg: DiTConfig, vocos_params, tokenizer: Tokenizer,
                  cfg: EngineConfig = EngineConfig(), device: str | torch.device | None = None,
-                 forward_fn=dit_forward, embed_fn=dit_embed):
+                 forward_fn=dit_forward, embed_fn=dit_embed, mesh=None):
         """``dit_params``/``vocos_params``: the JAX numpy params trees of the
         backbone and the vocoder (e.g. ``load_params_npz`` of an
         ``f5tpu-convert`` file, a converted torch checkpoint, or
         ``init_*_numpy``); ``vocos_params`` holds BigVGAN's tree when
         ``cfg.vocoder_type == "bigvgan"``. ``forward_fn``/``embed_fn`` are the
         backbone's (``dit_*`` or ``unett_*``; ``dit_cfg`` is its config). The
-        engine keeps its serving copy on ``device`` in ``cfg.compute_dtype``."""
+        engine keeps its serving copy on ``device`` in ``cfg.compute_dtype``.
+        ``mesh``: serve tensor-parallel on the mesh's device (see the module
+        docstring); every rank must make the same calls."""
+        if mesh is not None:
+            if device is not None and resolve_device(device).type != mesh.device.type:
+                raise ValueError(f"device {device!r} differs from the mesh's {mesh.device}")
+            device = mesh.device
+            if cfg.quantization == "int8" and mesh["model"].size > 1:
+                from f5tts_tpu_torch.models.modules import INT8_TP_ITEM
+
+                raise NotImplementedError(f"quantization='int8' under model_parallel > 1 is not ported: {INT8_TP_ITEM}")
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.compute_dtype = _DTYPES[cfg.compute_dtype]
         self.dit_params = backbone_params_from_numpy(dit_params, self.device, self.compute_dtype)
+        if mesh is not None:
+            from f5tts_tpu_torch.parallel.sharding import shard_params
+
+            self.dit_params = shard_params(self.dit_params, mesh)
+            forward_fn = functools.partial(forward_fn, tp=mesh["model"])
         if cfg.quantization == "int8":
             if "blocks" not in self.dit_params:
                 raise ValueError("quantization='int8' quantizes the DiT's blocks; this backbone has none")
@@ -185,7 +224,7 @@ class TTSEngine:
         else:
             self.vocos_params = vocos_params_from_numpy(vocos_params, self.device, self.compute_dtype)
             self._decode = lambda vp, mel: vocos_decode(vp, mel, cfg.vocoder, compute_dtype=self.compute_dtype)
-        self._host_rng = np.random.default_rng()
+        self._host_rng = np.random.default_rng(_shared_seed(mesh))
         # quality="strict" observability: recipe escalations so far, and the
         # last synthesize_rows call's per-row embedded-error estimates
         self.escalations = 0

@@ -13,10 +13,18 @@ Training semantics, as in the JAX package:
 The random draws are split from the loss (``cfm_draws`` / ``cfm_loss``), so a
 test can feed the JAX package's draws: ``jax.random`` cannot be reproduced in
 torch.
+
+Under a mesh (``cfm_loss(mesh=...)``) each data-parallel rank holds its rows
+of the global batch (``CFMDraws.rows`` of the global draws) and the backbone
+its tensor-parallel shards. The denominator is the global count of selected
+frames x channels, all-reduced over ``data``, so the ranks' losses sum to
+the one-device loss of the global batch (and their gradients to its
+gradient), not to a mean of per-rank means.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 
 import torch
@@ -45,6 +53,11 @@ class CFMDraws:
     drop_both: bool  # text + audio drop for the batch
     dropout_seed: int  # seeds the per-block dropout masks
 
+    def rows(self, sl: slice) -> "CFMDraws":
+        """The draws of the rows ``sl`` of the batch (a data-parallel rank's)."""
+        return CFMDraws(self.frac_lengths[sl], self.span_rand[sl], self.x0[sl], self.t[sl], self.drop_audio,
+                        self.drop_both, self.dropout_seed)
+
 
 def cfm_draws(generator: torch.Generator, lens: torch.Tensor, n: int, mel_dim: int,
               cfg: CFMConfig = CFMConfig()) -> CFMDraws:
@@ -64,17 +77,23 @@ def cfm_draws(generator: torch.Generator, lens: torch.Tensor, n: int, mel_dim: i
 
 
 def cfm_loss(params, cfg: CFMConfig, draws: CFMDraws, mel: torch.Tensor, text: torch.Tensor, lens: torch.Tensor,
-             compute_dtype: torch.dtype = torch.float32, forward_fn=None):
+             compute_dtype: torch.dtype = torch.float32, forward_fn=None, mesh=None):
     """``(loss, aux)`` of one batch: ``mel (b, n, mel_dim)`` target (x1,
     padded), ``text (b, nt)`` ids (pad -1), ``lens (b,)`` valid frames. The
     forward runs in training mode (differentiable kernels, dropout,
     per-block checkpointing). ``forward_fn`` defaults to the backbone of
-    ``cfg.model``'s type (DiT, UNetT or MMDiT)."""
+    ``cfg.model``'s type (DiT, UNetT or MMDiT). ``mesh``: the batch is this
+    rank's rows and ``params`` its shards (see the module docstring); the
+    loss is this rank's share of the global loss, and ``aux`` is global."""
     if forward_fn is None:
         from f5tts_tpu_torch.models import backbone_fns
 
         forward_fn = backbone_fns(cfg.model)[1]
     b, n, _ = mel.shape
+    data = mesh["data"] if mesh is not None else None
+    if mesh is not None:
+        rows = (data.index * b, data.size * b) if data.size > 1 else None
+        forward_fn = functools.partial(forward_fn, tp=mesh["model"], batch_rows=rows)
     dev = mel.device
     mask = lens_to_mask(lens, n)
     span = mask_from_frac_lengths(lens, draws.frac_lengths.to(dev), n, rand=draws.span_rand.to(dev)) & mask
@@ -91,6 +110,10 @@ def cfm_loss(params, cfg: CFMConfig, draws: CFMDraws, mel: torch.Tensor, text: t
     pred = forward_fn(params, cfg.model, phi, cond, text, t, drop_audio_cond, drop_text, mask=None,
                       compute_dtype=compute_dtype, training=True, dropout_seed=draws.dropout_seed)
     se = torch.square(pred.float() - flow.float())
-    denom = torch.clamp(span.float().sum() * se.shape[-1], min=1.0)
+    counts = torch.stack([span.float().sum(), t.float().sum()])  # selected frames, summed flow times
+    if data is not None:
+        data.all_reduce(counts)
+    denom = torch.clamp(counts[0] * se.shape[-1], min=1.0)
     loss = (se * span[..., None].float()).sum() / denom
-    return loss, {"masked_frames": span.sum(), "t_mean": t.float().mean()}
+    global_b = b * (data.size if data is not None else 1)
+    return loss, {"masked_frames": counts[0].to(torch.int64), "t_mean": counts[1] / global_b}

@@ -9,7 +9,11 @@
   RoPE, AdaLN-Zero final + Linear -> mel.
 - training (``dit_forward(training=True)``): the differentiable kernels,
   dropout from per-block seeds, and each block under activation
-  checkpointing (the JAX package remats each scanned block).
+  checkpointing (the JAX package remats each scanned block);
+- multi-device: ``tp`` (the mesh's ``model`` axis) runs the blocks on this
+  rank's Megatron shards, ``cp`` the ring attention of ``attn_impl="ring"``,
+  and ``batch_rows`` places a data-parallel rank's rows in the global batch
+  for its dropout masks (``models/modules.py``).
 
 Parameters are the JAX tree: nested dicts of tensors, the blocks stacked
 with a leading depth axis (``models/convert.py:dit_params_from_numpy``).
@@ -60,7 +64,7 @@ class DiTConfig:
     dropout: float = 0.1  # train-time attention/FF dropout (DiTBlock default)
     long_skip_connection: bool = False
     max_pos: int = 4096
-    attn_impl: str = "flash"  # "flash" (kernel wrapper) | "plain"
+    attn_impl: str = "flash"  # "flash" (kernel wrapper) | "plain" | "ring" (context parallel over ``cp``)
     conv_pos_impl: str = "fused"  # "fused" (kernel wrapper) | "plain"
     rope_all_heads: bool = False  # False = reference parity (head-0-only RoPE)
 
@@ -149,12 +153,17 @@ def dit_forward(
     compute_dtype: torch.dtype = torch.float32,
     training: bool = False,
     dropout_seed: int | None = None,  # training: enables cfg.dropout
+    tp=None,  # the mesh's model axis: the blocks hold this rank's shards
+    cp=None,  # the ring's axis (attn_impl="ring")
+    batch_rows: tuple[int, int] | None = None,  # (first row, global rows) of a data-parallel rank
 ) -> torch.Tensor:
     """The DiT's velocity prediction. With ``training``, attention takes the
     differentiable kernels (whatever ``cfg.dropout`` is), dropout draws from
     per-block seeds derived from ``dropout_seed``, and each block runs under
     ``torch.utils.checkpoint``: its activations are recomputed in the backward
-    instead of stored, and its dropout masks with them."""
+    instead of stored, and its dropout masks with them. ``tp``/``cp``/
+    ``batch_rows``: see the module docstring; everything outside the blocks
+    is replicated."""
     b, n, _ = x.shape
     if time.ndim == 0:
         time = time.expand(b)
@@ -173,13 +182,13 @@ def dit_forward(
             def run(h_in, blk=blk, blk_seeds=blk_seeds):
                 return m.dit_block(blk, h_in, t, cfg.heads, freqs, mask, impl=cfg.attn_impl,
                                    rope_all_heads=cfg.rope_all_heads, training=True, dropout_seeds=blk_seeds,
-                                   dropout_rate=cfg.dropout)
+                                   dropout_rate=cfg.dropout, tp=tp, cp=cp, rows=batch_rows)
 
             h = checkpoint(run, h, use_reentrant=False, preserve_rng_state=False)
     else:
         for i in range(depth):
             h = m.dit_block(block(params["blocks"], i), h, t, cfg.heads, freqs, mask,
-                            impl=cfg.attn_impl, rope_all_heads=cfg.rope_all_heads, rope_cos_sin=cos_sin)
+                            impl=cfg.attn_impl, rope_all_heads=cfg.rope_all_heads, rope_cos_sin=cos_sin, tp=tp, cp=cp)
     if cfg.long_skip_connection:
         h = m.linear(params["long_skip"], torch.cat([h, residual], dim=-1))
     h = m.adaln_zero_final(params["norm_out"], h, t)

@@ -14,7 +14,10 @@ is ``ops/attention.py:sdpa``, the plain attention: the JAX package runs it
 through XLA (``sdpa_xla``), not a Pallas kernel. The JAX package has no engine or CLI path for this backbone, and
 neither has the port. Training (``mmdit_forward(training=True)``) runs each
 block under ``torch.utils.checkpoint`` (the JAX package remats each scanned
-block); dropout is not applied, as in the JAX MMDiT.
+block); dropout is not applied, as in the JAX MMDiT. It trains data-parallel
+(``tp`` of size 1); tensor parallelism raises: its joint attention's
+``to_out_c`` is column-parallel under the JAX package's key rule, a Megatron
+split of its own (``ROADMAP.md`` A.8).
 """
 
 from __future__ import annotations
@@ -105,9 +108,15 @@ def mmdit_forward(
     compute_dtype: torch.dtype = torch.float32,
     training: bool = False,
     dropout_seed: int | None = None,  # accepted for the trainer's interface; no dropout (as in JAX)
+    tp=None,  # the mesh's model axis: size 1 only
+    cp=None,  # no ring path
+    batch_rows: tuple[int, int] | None = None,  # accepted for the trainer's interface (no dropout)
 ) -> torch.Tensor:
     """The MMDiT's velocity prediction ``(b, n, mel_dim)``; with ``training``,
     per-block activation checkpointing."""
+    if (tp is not None and tp.size > 1) or cp is not None:
+        raise NotImplementedError("the MMDiT runs on one model rank (data parallel only): tensor and context "
+                                  "parallelism of its joint attention are ROADMAP.md A.8 (MMDiT under TP)")
     b, n, _ = x.shape
     if time.ndim == 0:
         time = time.expand(b)

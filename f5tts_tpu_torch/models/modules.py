@@ -19,6 +19,18 @@ takes the differentiable kernels: RoPE on q/k in PyTorch, then
 backward). Dropout is inverted dropout drawn from a generator seeded
 inside the layer from an explicit seed, so re-running a block (activation
 checkpointing) draws the same masks.
+
+Tensor parallelism (``tp``: the mesh's ``model`` axis, ``parallel/mesh.py``,
+or None): ``attention`` and ``feed_forward`` take this rank's Megatron
+shards (``parallel/sharding.py``): ``heads // tp.size`` local heads, q/k/v
+and the feed-forward's ``in`` column-parallel, ``to_out`` and ``out``
+row-parallel, their partial products summed over ``tp`` and the replicated
+bias added once, after the sum. The input of the column-parallel linears
+passes ``tp_input`` (identity forward, its gradient summed over ``tp``).
+The flat-RoPE quirk rotates global head 0, which lives on model rank 0: the
+other ranks rotate nothing. ``tp`` of size 1 takes the one-device code as it
+is. ``attention(impl="ring")`` is context-parallel ring attention over the
+``cp`` axis (``parallel/ring_attention.py``).
 """
 
 from __future__ import annotations
@@ -34,6 +46,61 @@ from f5tts_tpu_torch.ops.kernels.flash_attention import flash_attention
 from f5tts_tpu_torch.ops.kernels.flash_attention_train import flash_attention_train
 from f5tts_tpu_torch.ops.kernels.quant_matmul import kernel_layout, quant_matmul
 from f5tts_tpu_torch.ops.rope import apply_rotary, apply_rotary_per_head
+
+INT8_TP_ITEM = "ROADMAP.md A.8 (int8 under tensor parallelism: an all-reduced row abs-max)"
+
+
+def _parallel(tp) -> bool:
+    return tp is not None and tp.size > 1
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's ``f``: identity forward; the gradient, partial on each
+    rank (each rank's column shards see the whole input), summed over ``tp``."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.all_reduce(g.contiguous().clone()), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's ``g``: the row-parallel partial products summed over ``tp``
+    in the forward; the gradient passes unchanged (it is replicated)."""
+
+    @staticmethod
+    def forward(ctx, y, tp):
+        return tp.all_reduce(y.clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def tp_input(x, tp):
+    """The input of column-parallel linears (see ``_CopyToModel``)."""
+    if _parallel(tp) and torch.is_grad_enabled() and x.requires_grad:
+        return _CopyToModel.apply(x, tp)
+    return x
+
+
+def row_parallel_linear(p, x, tp):
+    """``linear`` with its input axis sharded over ``tp``: the partial
+    products summed over the model group, then the (replicated) bias added
+    once. One device: ``linear`` itself."""
+    if not _parallel(tp):
+        return linear(p, x)
+    if "w_q" in p:
+        raise NotImplementedError(f"int8 linears under tensor parallelism are not ported: {INT8_TP_ITEM}")
+    y = x @ p["w"].to(x.dtype)
+    y = _ReduceFromModel.apply(y, tp) if torch.is_grad_enabled() and y.requires_grad else tp.all_reduce(y)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
 
 
 def linear(p, x):
@@ -222,21 +289,44 @@ def adaln_zero_final(p, x, emb):
 # ---------------------------------------------------------------------------
 
 
-def dropout(x, seed: int, rate: float):
+def dropout(x, seed: int, rate: float, window: tuple[tuple[int, int], ...] | None = None):
     """Inverted dropout with masks drawn from a fresh generator seeded with
     ``seed`` (train time only): the same seed gives the same mask, so a
-    recomputed block matches."""
+    recomputed block matches. ``window``, one ``(start, whole)`` per axis,
+    says that ``x`` is the block ``[start, start + x.shape[i])`` of a tensor
+    ``whole`` long on each axis (a rank's rows and columns): the mask of the
+    whole tensor is drawn and ``x`` takes its block, so a sharded run draws
+    the one-device run's masks."""
     keep = 1.0 - rate
     gen = torch.Generator(device=x.device).manual_seed(seed)
-    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    shape = x.shape if window is None else tuple(whole for _, whole in window)
+    mask = torch.rand(shape, generator=gen, device=x.device) < keep
+    if window is not None:
+        mask = mask[tuple(slice(start, start + n) for (start, _), n in zip(window, x.shape))]
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device)).to(x.dtype)
 
 
-def feed_forward(p, x, dropout_seed: int | None = None, dropout_rate: float = 0.0):
-    h = F.gelu(linear(p["in"], x), approximate="tanh")
-    if dropout_seed is not None and dropout_rate > 0.0:
-        h = dropout(h, dropout_seed, dropout_rate)  # Sequential(Linear+GELU, Dropout, Linear)
-    return linear(p["out"], h)
+def _dropout_window(x, rows, tp):
+    """The ``dropout`` window of a ``(b, n, c)`` activation: this rank's
+    ``rows = (first row, global rows)`` of the data-parallel batch, and its
+    block of the columns when ``tp`` shards them (None: the whole tensor)."""
+    if rows is None and not _parallel(tp):
+        return None
+    b, n, c = x.shape
+    row = rows if rows is not None else (0, b)
+    col = (tp.index * c, tp.size * c) if _parallel(tp) else (0, c)
+    return (row, (0, n), col)
+
+
+def feed_forward(p, x, dropout_seed: int | None = None, dropout_rate: float = 0.0, tp=None, rows=None):
+    """Linear + tanh GELU, dropout, Linear; under ``tp`` the hidden is this
+    rank's columns (its dropout mask the matching block of the one-device
+    mask), ``in`` column- and ``out`` row-parallel. ``rows``: see
+    ``_dropout_window``."""
+    h = F.gelu(linear(p["in"], tp_input(x, tp)), approximate="tanh")
+    if dropout_seed is not None and dropout_rate > 0.0:  # Sequential(Linear+GELU, Dropout, Linear)
+        h = dropout(h, dropout_seed, dropout_rate, _dropout_window(h, rows, tp))
+    return row_parallel_linear(p["out"], h, tp)
 
 
 def _rope_heads(t, rope_freqs, rope_all_heads: bool):
@@ -248,17 +338,26 @@ def _rope_heads(t, rope_freqs, rope_all_heads: bool):
 
 def attention(p, x, heads: int, rope_freqs=None, mask=None, impl: str = "flash", rope_all_heads: bool = False,
               training: bool = False, dropout_seed: int | None = None, dropout_rate: float = 0.0,
-              rope_cos_sin=None):
+              rope_cos_sin=None, tp=None, cp=None, rows=None):
     """Self-attention with the reference's flat-RoPE quirk. ``impl='flash'``
     takes the kernel wrapper with the RoPE fused in (serving; ``rope_cos_sin``
     is handed to it) or, with ``training``, RoPE in PyTorch and the
     differentiable kernels; ``'plain'`` applies RoPE on the flat projection
-    (head 0) or per head, then ``sdpa``."""
+    (head 0) or per head, then ``sdpa``; ``'ring'`` does the same RoPE, then
+    ring attention over the ``cp`` axis (serving only). ``tp``: this rank's
+    heads (see the module docstring); ``rows``: the dropout window's rows."""
     b, n, _ = x.shape
+    if _parallel(tp):
+        if heads % tp.size:
+            raise ValueError(f"{heads} heads do not divide over {tp.size} model ranks")
+        heads //= tp.size
+        if not rope_all_heads and tp.index > 0:  # global head 0 lives on model rank 0
+            rope_freqs = rope_cos_sin = None
+    x = tp_input(x, tp)
     q = linear(p["to_q"], x)
     k = linear(p["to_k"], x)
     v = linear(p["to_v"], x)
-    if impl == "plain" and rope_freqs is not None and not rope_all_heads:
+    if impl in ("plain", "ring") and rope_freqs is not None and not rope_all_heads:
         q = apply_rotary(q, rope_freqs)
         k = apply_rotary(k, rope_freqs)
 
@@ -268,6 +367,9 @@ def attention(p, x, heads: int, rope_freqs=None, mask=None, impl: str = "flash",
     q, k, v = split_heads(q), split_heads(k), split_heads(v)
     if impl != "flash":  # the plain path takes contiguous heads
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if impl != "flash" and rope_freqs is not None and rope_all_heads:
+        q = apply_rotary_per_head(q, rope_freqs)
+        k = apply_rotary_per_head(k, rope_freqs)
     if impl == "flash" and training:
         if rope_freqs is not None:  # the RoPE's cat is q's and k's one copy; v stays a view
             q, k = _rope_heads(q, rope_freqs, rope_all_heads), _rope_heads(k, rope_freqs, rope_all_heads)
@@ -276,15 +378,18 @@ def attention(p, x, heads: int, rope_freqs=None, mask=None, impl: str = "flash",
         o = flash_attention(q, k, v, mask, rope_freqs=rope_freqs, rope_all_heads=rope_all_heads,
                             rope_cos_sin=rope_cos_sin)
     elif impl == "plain":
-        if rope_freqs is not None and rope_all_heads:
-            q = apply_rotary_per_head(q, rope_freqs)
-            k = apply_rotary_per_head(k, rope_freqs)
         o = sdpa(q, k, v, mask)
+    elif impl == "ring":
+        if training or cp is None:
+            raise ValueError("attn_impl='ring' serves only (forward-only ring) and needs the cp axis")
+        from f5tts_tpu_torch.parallel.ring_attention import ring_attention
+
+        o = ring_attention(q, k, v, mask, cp)
     else:
         raise ValueError(f"unknown attention impl {impl!r}")
-    o = linear(p["to_out"], o.transpose(1, 2).reshape(b, n, -1))  # a view of the kernels' (b, n, h, d) output
+    o = row_parallel_linear(p["to_out"], o.transpose(1, 2).reshape(b, n, -1), tp)  # a view of the kernels' output
     if dropout_seed is not None and dropout_rate > 0.0:
-        o = dropout(o, dropout_seed, dropout_rate)  # to_out = [Linear, Dropout]
+        o = dropout(o, dropout_seed, dropout_rate, _dropout_window(o, rows, None))  # to_out = [Linear, Dropout]
     if mask is not None:
         o = _where_rows(mask, o)
     return o
@@ -292,12 +397,12 @@ def attention(p, x, heads: int, rope_freqs=None, mask=None, impl: str = "flash",
 
 def dit_block(p, x, t_emb, heads: int, rope_freqs=None, mask=None, impl: str = "flash", rope_all_heads: bool = False,
               training: bool = False, dropout_seeds: tuple[int, int] | None = None, dropout_rate: float = 0.0,
-              rope_cos_sin=None):
+              rope_cos_sin=None, tp=None, cp=None, rows=None):
     """One DiT block; ``dropout_seeds`` = (attention seed, feed-forward seed);
-    ``rope_cos_sin`` as ``attention`` takes it."""
+    ``rope_cos_sin``, ``tp``, ``cp`` and ``rows`` as ``attention`` takes them."""
     attn_seed, ff_seed = dropout_seeds if dropout_seeds is not None else (None, None)
     norm, gate_msa, shift_mlp, scale_mlp, gate_mlp = adaln_zero(p["attn_norm"], x, t_emb)
     x = x + gate_msa[:, None] * attention(p["attn"], norm, heads, rope_freqs, mask, impl, rope_all_heads,
-                                          training, attn_seed, dropout_rate, rope_cos_sin)
+                                          training, attn_seed, dropout_rate, rope_cos_sin, tp, cp, rows)
     norm = layer_norm(x) * (1 + scale_mlp[:, None]) + shift_mlp[:, None]
-    return x + gate_mlp[:, None] * feed_forward(p["ff"], norm, ff_seed, dropout_rate)
+    return x + gate_mlp[:, None] * feed_forward(p["ff"], norm, ff_seed, dropout_rate, tp, rows)

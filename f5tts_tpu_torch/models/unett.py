@@ -23,6 +23,10 @@ differentiable route, and each block (with its skip merge) runs under
 Dropout is not applied, as in the JAX UNetT (``dropout_seed`` is accepted for
 the trainer's interface).
 
+Multi-device: ``tp`` and ``cp`` reach the blocks' attention and
+feed-forward as in the DiT (``models/modules.py``); the skip projections,
+norms and embeddings are replicated.
+
 Parameters are the JAX tree (``models/convert.py:unett_params_from_numpy``).
 """
 
@@ -51,7 +55,7 @@ class UNetTConfig:
     conv_layers: int = 4
     skip_connect_type: str = "concat"  # "concat" | "add" | "none"
     max_pos: int = 4096
-    attn_impl: str = "flash"  # "flash" (kernel wrapper) | "plain"
+    attn_impl: str = "flash"  # "flash" (kernel wrapper) | "plain" | "ring" (context parallel over ``cp``)
     conv_pos_impl: str = "fused"  # "fused" (kernel wrapper) | "plain"
     rope_all_heads: bool = False
 
@@ -77,11 +81,11 @@ def unett_embed(params, cfg: UNetTConfig, text, seq_len: int, drop_text, valid_m
     return text_embed(params, cfg, text, seq_len, drop_text, valid_mask)
 
 
-def _attn_ff(blk, h, cfg: UNetTConfig, freqs, cos_sin, mask, training: bool = False):
+def _attn_ff(blk, h, cfg: UNetTConfig, freqs, cos_sin, mask, training: bool = False, tp=None, cp=None):
     a = m.attention(blk["attn"], m.rms_norm(blk["attn_norm"], h), cfg.heads, freqs, mask, impl=cfg.attn_impl,
-                    rope_all_heads=cfg.rope_all_heads, training=training, rope_cos_sin=cos_sin)
+                    rope_all_heads=cfg.rope_all_heads, training=training, rope_cos_sin=cos_sin, tp=tp, cp=cp)
     h = a + h
-    return m.feed_forward(blk["ff"], m.rms_norm(blk["ff_norm"], h)) + h
+    return m.feed_forward(blk["ff"], m.rms_norm(blk["ff_norm"], h), tp=tp) + h
 
 
 def _merge_skip(blk, h, skip, cfg: UNetTConfig):
@@ -106,6 +110,9 @@ def unett_forward(
     compute_dtype: torch.dtype = torch.float32,
     training: bool = False,
     dropout_seed: int | None = None,  # accepted for the trainer's interface; no dropout (as in JAX)
+    tp=None,  # the mesh's model axis: the blocks hold this rank's shards
+    cp=None,  # the ring's axis (attn_impl="ring")
+    batch_rows: tuple[int, int] | None = None,  # accepted for the trainer's interface (no dropout)
 ) -> torch.Tensor:
     """The UNetT's velocity prediction ``(b, n, mel_dim)``. With ``training``,
     the differentiable kernels and per-block activation checkpointing."""
@@ -133,11 +140,11 @@ def unett_forward(
     for i in range(half):
         skips.append(h)  # each block's input is its skip
         blk = block(params["first_half"], i)
-        h = run(lambda h_in, blk=blk: _attn_ff(blk, h_in, cfg, freqs, cos_sin, mask, training), h)
+        h = run(lambda h_in, blk=blk: _attn_ff(blk, h_in, cfg, freqs, cos_sin, mask, training, tp, cp), h)
     for i in range(half):
         blk = block(params["second_half"], i)
         h = run(lambda h_in, skip, blk=blk: _attn_ff(blk, _merge_skip(blk, h_in, skip, cfg), cfg, freqs, cos_sin, mask,
-                                                     training), h, skips.pop())
+                                                     training, tp, cp), h, skips.pop())
 
     h = m.rms_norm(params["norm_out"], h)[:, 1 : n + 1]
     return m.linear(params["proj_out"], h)
