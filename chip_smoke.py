@@ -6,6 +6,7 @@
     python3 chip_smoke.py --backbones-only  # the build, the F5 bench and phases 13-16 (no result lines)
     python3 chip_smoke.py --distill-only  # the build and phase 17 alone (no result lines)
     python3 chip_smoke.py --parallel-only  # the build and phase 18 alone (no result lines)
+    python3 chip_smoke.py --ar-only  # the build and phase 19 alone (no result lines)
 
 Phases, each of which fails the run (non-zero exit) on any error:
 
@@ -196,6 +197,24 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (a whole shard of them), against fp32 plain attention over the whole
    sequence, the 4 hops' device time beside the serving kernel's on the
    whole sequence.
+19. the autoregressive leftovers (after the Parler phase, on its seeded
+   full-width trees): (a) one ParlerTTSForConditionalGeneration-layout state
+   dict written from those trees (the inverse key map
+   ``parler_hf_state_dict``; the DAC in descript's positional layout with
+   ``weight_g``/``weight_v`` pairs) to a temporary ``.pt``, read back by
+   ``load_parler_checkpoint``: T5 and decoder trees bit-equal, the DAC within
+   1e-6 relative; an engine on the loaded trees and one on the seeded trees
+   each serve one greedy 3-row request (bf16): codes equal, exactly
+   ``2 * layers * (frames + K - 1)`` decode-attention launches each, no other
+   kernel, waves within a tolerance; (b) ``parler_loss`` and its backward at
+   full decoder width (b 2, 256 positions with the delay pattern, 64
+   encoder states) in fp32 and bf16 compute: bf16 loss near fp32's, every
+   gradient finite, no kernel launched, step ms and peak memory; (c) the AR
+   mel decoder at ``ARConfig()`` + ``VocosConfig()``: fp32 generation with
+   the stop disabled against the teacher-forced pass over its frames, then
+   ``ARTTSEngine.synthesize_batch`` at batch 8, ``text_pad`` 256, 1024
+   frames, bf16 (lengths, audio-s/s over the median of 3 calls, ms and
+   launches per position, a device-only profile); no kernel launched.
 
 The last lines are the card's name and power limit, one ``{"kernels": [...]}``
 JSON line and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -1901,16 +1920,30 @@ def parler_logit_parity(dev) -> None:
     check(np.isfinite(err) and err <= PARLER_LOGIT_TOL, f"parler step logits diverged: {err}")
 
 
-def parler_phase(dev, card: str, launches: dict) -> None:
-    from f5tts_tpu_torch.engine.ar_engine import ParlerEngineConfig, ParlerRow, ParlerTTSEngine
-    from f5tts_tpu_torch.engine.batcher import ContinuousBatcher
+def parler_full_trees():
+    """indic-parler-tts (flan-t5-large encoder, 24-layer decoder over 9
+    codebooks, 44.1 kHz DAC) at full width and depth: the configs and the
+    seeded numpy trees (seeds 0, 1, 2) that phases Parler and 19 share."""
     from f5tts_tpu_torch.models import parler as P
     from f5tts_tpu_torch.models.convert import init_dac_numpy, init_parler_decoder_numpy, init_t5_numpy
+    from f5tts_tpu_torch.train.tree import tree_leaves
+
+    cfgs = P.T5Config(), P.ParlerDecoderConfig(), P.DacConfig()
+    t0 = time.perf_counter()
+    trees = (init_t5_numpy(cfgs[0], seed=0), init_parler_decoder_numpy(cfgs[1], seed=1), init_dac_numpy(cfgs[2], seed=2))
+    n_params = [sum(t.size for _, t in tree_leaves(tree)) for tree in trees]
+    log(f"parler params (T5 {n_params[0]}, decoder {n_params[1]}, DAC {n_params[2]}; seeds 0, 1, 2) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return cfgs, trees
+
+
+def parler_phase(dev, card: str, launches: dict, cfgs, trees) -> None:
+    from f5tts_tpu_torch.engine.ar_engine import ParlerEngineConfig, ParlerRow, ParlerTTSEngine
+    from f5tts_tpu_torch.engine.batcher import ContinuousBatcher
     from f5tts_tpu_torch.ops.kernels.conv_pos import conv_pos
     from f5tts_tpu_torch.ops.kernels.decode_attention import decode_attention
     from f5tts_tpu_torch.ops.kernels.flash_attention import flash_attention, rope_rows
     from f5tts_tpu_torch.ops.kernels.flash_attention_train import flash_attention_train_bwd, flash_attention_train_fwd
-    from f5tts_tpu_torch.train.tree import tree_leaves
 
     parler_logit_parity(dev)
     others = {"flash_attention": flash_attention, "rope_rows": rope_rows, "conv_pos": conv_pos,
@@ -1934,14 +1967,8 @@ def parler_phase(dev, card: str, launches: dict) -> None:
         check(not stray, f"{what}: F5 kernels launched on the Parler path: {stray}")
         return out
 
-    # indic-parler-tts: flan-t5-large encoder, 24-layer decoder over 9 codebooks, 44.1 kHz DAC
-    t5_cfg, dec_cfg, dac_cfg = P.T5Config(), P.ParlerDecoderConfig(), P.DacConfig()
+    t5_cfg, dec_cfg, dac_cfg = cfgs
     layers, K, hop = dec_cfg.layers, dec_cfg.codebooks, dac_cfg.hop
-    t0 = time.perf_counter()
-    trees = (init_t5_numpy(t5_cfg, seed=0), init_parler_decoder_numpy(dec_cfg, seed=1), init_dac_numpy(dac_cfg, seed=2))
-    n_params = [sum(t.size for _, t in tree_leaves(tree)) for tree in trees]
-    log(f"parler params (T5 {n_params[0]}, decoder {n_params[1]}, DAC {n_params[2]}; seeds 0, 1, 2) in "
-        f"{time.perf_counter() - t0:.1f} s")
 
     def encode_fn(text):  # stand-in for the T5 sentencepiece tokenizer, which ships with the checkpoint
         return [ord(c) % t5_cfg.vocab for c in text]
@@ -2042,6 +2069,384 @@ def parler_phase(dev, card: str, launches: dict) -> None:
     launches["decode_attention"]["parler"] = total_launches[0]
     del engine
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the autoregressive leftovers (Parler checkpoints, parler_loss, the AR mel decoder)
+# ---------------------------------------------------------------------------
+
+PARLER_CKPT_DAC_REL = 1e-6  # DAC leaves read from weight_g/weight_v pairs: the fold g * v / ||v|| rounds
+PARLER_CKPT_WAVE_TOL = 1e-2  # waves, loaded vs seeded engine, bf16: a DAC weight may round to another bf16 value
+PARLER_LOSS_BF16_REL = 1e-2  # parler_loss at bf16 compute vs fp32, relative: bf16 hidden states through 24 layers
+AR_TEACHER_TOL = 1e-3  # ar_generate (stop never fires) vs the teacher-forced pass over its frames, fp32, max abs
+
+
+def parler_hf_state_dict(t5: dict, dec: dict, dac: dict, t5_cfg, dec_cfg) -> dict:
+    """The ParlerTTSForConditionalGeneration state dict of numpy trees: the
+    inverse of ``models/parler.py:load_parler_checkpoint``'s key map. T5 under
+    ``text_encoder.``, the decoder under ``decoder.model.decoder.`` with its
+    heads at ``decoder.lm_heads.``, ``embed_prompts.weight``,
+    ``enc_to_dec_proj`` where the tree has one, and the DAC under
+    ``audio_encoder.model.`` in descript's positional layout, every conv as a
+    ``weight_g`` / ``weight_v`` pair (``g = ||v||`` over all axes but the
+    first, ``v`` the weight), snake alphas ``(1, ch, 1)``."""
+    sd: dict = {}
+
+    def put(key, a):
+        sd[key] = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+
+    def lin(prefix, p, l=None):
+        put(f"{prefix}.weight", (p["w"] if l is None else p["w"][l]).T)
+        if "b" in p:
+            put(f"{prefix}.bias", p["b"] if l is None else p["b"][l])
+
+    e, tb = "text_encoder.encoder", t5["blocks"]
+    put(f"{e}.embed_tokens.weight", t5["embed"])
+    put(f"{e}.block.0.layer.0.SelfAttention.relative_attention_bias.weight", t5["rel_bias"])
+    for i in range(t5_cfg.layers):
+        b0, b1 = f"{e}.block.{i}.layer.0", f"{e}.block.{i}.layer.1"
+        put(f"{b0}.layer_norm.weight", tb["ln1"]["g"][i])
+        for n in ("q", "k", "v", "o"):
+            lin(f"{b0}.SelfAttention.{n}", tb[n], i)
+        put(f"{b1}.layer_norm.weight", tb["ln2"]["g"][i])
+        for n in ("wi_0", "wi_1", "wo"):
+            lin(f"{b1}.DenseReluDense.{n}", tb[n], i)
+    put(f"{e}.final_layer_norm.weight", t5["final_ln"]["g"])
+
+    d, db = "decoder.model.decoder", dec["blocks"]
+    for k in range(dec_cfg.codebooks):
+        put(f"{d}.embed_tokens.{k}.weight", dec["embed_tokens"][k])
+        put(f"decoder.lm_heads.{k}.weight", dec["lm_heads"][k].T)
+    for i in range(dec_cfg.layers):
+        L = f"{d}.layers.{i}"
+        for name, key in (("self_attn_layer_norm", "ln_sa"), ("encoder_attn_layer_norm", "ln_ca"),
+                          ("final_layer_norm", "ln_ff")):
+            put(f"{L}.{name}.weight", db[key]["w"][i])
+            put(f"{L}.{name}.bias", db[key]["b"][i])
+        for name, key in (("self_attn", "sa"), ("encoder_attn", "ca")):
+            for proj, n in (("q_proj", "q"), ("k_proj", "k"), ("v_proj", "v"), ("out_proj", "o")):
+                lin(f"{L}.{name}.{proj}", db[key][n], i)
+        lin(f"{L}.fc1", db["fc1"], i)
+        lin(f"{L}.fc2", db["fc2"], i)
+    put(f"{d}.layer_norm.weight", dec["final_ln"]["w"])
+    put(f"{d}.layer_norm.bias", dec["final_ln"]["b"])
+    put("embed_prompts.weight", dec["embed_prompts"])
+    if "enc_proj" in dec:
+        lin("enc_to_dec_proj", dec["enc_proj"])
+
+    a = "audio_encoder.model"
+
+    def weight_norm(prefix, w, b):  # w in torch's layout
+        w = np.ascontiguousarray(w, dtype=np.float32)
+        put(f"{prefix}.weight_g", np.sqrt(np.sum(w * w, axis=tuple(range(1, w.ndim)), keepdims=True)))
+        put(f"{prefix}.weight_v", w)
+        put(f"{prefix}.bias", b)
+
+    def conv(prefix, p):  # (k, in, out) -> Conv1d (out, in, k)
+        weight_norm(prefix, p["w"].transpose(2, 1, 0), p["b"])
+
+    def alpha(prefix, x):
+        put(f"{prefix}.alpha", x.reshape(1, -1, 1))
+
+    q = dac["quant"]
+    for i in range(len(q["codebook"])):
+        put(f"{a}.quantizer.quantizers.{i}.codebook.weight", q["codebook"][i])
+        weight_norm(f"{a}.quantizer.quantizers.{i}.out_proj", q["proj_w"][i].T[..., None], q["proj_b"][i])
+    conv(f"{a}.decoder.model.0", dac["conv1"])
+    for i, blk in enumerate(dac["blocks"]):
+        B = f"{a}.decoder.model.{1 + i}"
+        alpha(f"{B}.block.0", blk["alpha"])
+        # (k, in, out) flipped along time -> ConvTranspose1d (in, out, k)
+        weight_norm(f"{B}.block.1", blk["convt"]["w"][::-1].transpose(1, 2, 0), blk["convt"]["b"])
+        for j, ru in enumerate(blk["res"]):
+            R = f"{B}.block.{2 + j}"
+            alpha(f"{R}.block.0", ru["alpha1"])
+            conv(f"{R}.block.1", ru["conv1"])
+            alpha(f"{R}.block.2", ru["alpha2"])
+            conv(f"{R}.block.3", ru["conv2"])
+    nb = len(dac["blocks"])
+    alpha(f"{a}.decoder.model.{1 + nb}", dac["alpha_out"])
+    conv(f"{a}.decoder.model.{2 + nb}", dac["conv2"])
+    return sd
+
+
+def _tree_diff(got, want, rel: bool = False) -> float:
+    """Largest difference between two numpy trees of one structure (per leaf
+    over the leaf's peak when ``rel``); inf where the structures differ."""
+    from f5tts_tpu_torch.train.tree import tree_leaves
+
+    a, b = sorted(tree_leaves(got), key=lambda kv: kv[0]), sorted(tree_leaves(want), key=lambda kv: kv[0])
+    if [k for k, _ in a] != [k for k, _ in b] or any(x.shape != y.shape for (_, x), (_, y) in zip(a, b)):
+        return float("inf")
+    worst = 0.0
+    for (_, x), (_, y) in zip(a, b):
+        d = float(np.abs(x.astype(np.float64) - y).max()) if x.size else 0.0
+        worst = max(worst, d / max(float(np.abs(y).max()), 1e-30) if rel else d)
+    return worst
+
+
+def _all_wrappers() -> dict:
+    from f5tts_tpu_torch.ops.kernels.ablate_attention import ablate_attention
+    from f5tts_tpu_torch.ops.kernels.decode_attention import decode_attention
+    from f5tts_tpu_torch.ops.kernels.quant_matmul import quant_matmul
+
+    return {**_distill_wrappers(), "decode_attention": decode_attention, "quant_matmul": quant_matmul,
+            "ablate_attention": ablate_attention}
+
+
+def _launched(what: str, run, want: dict):
+    """Run ``run`` with every kernel's count set to 0 before it; every count
+    read after it must equal ``want``'s (0 where ``want`` has no entry)."""
+    wrappers = _all_wrappers()
+    before = {name: w.launches for name, w in wrappers.items()}
+    for w in wrappers.values():
+        w.launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    got = {name: w.launches for name, w in wrappers.items()}
+    for name, w in wrappers.items():  # the running totals go on (the ablation kernel's is checked at the end)
+        w.launches = before[name] + got[name]
+    log(f"{what}: launches {({k: v for k, v in got.items() if v}) or 'none'} (want {want or 'none'})")
+    check(got == {name: want.get(name, 0) for name in wrappers}, f"{what}: launches {got}, want {want}")
+    return out
+
+
+def parler_ckpt_check(dev, card: str, launches: dict, cfgs, trees) -> None:
+    """(a) One ParlerTTS-layout state dict written from the seeded trees, read
+    back by ``load_parler_checkpoint`` and served beside the seeded trees."""
+    import shutil
+    import tempfile
+
+    from f5tts_tpu_torch.engine.ar_engine import ParlerEngineConfig, ParlerTTSEngine
+    from f5tts_tpu_torch.models import parler as P
+
+    t5_cfg, dec_cfg, dac_cfg = cfgs
+    t0 = time.perf_counter()
+    sd = parler_hf_state_dict(*trees, t5_cfg, dec_cfg)
+    n_params, n_keys = sum(t.numel() for t in sd.values()), len(sd)
+    tmp = tempfile.mkdtemp(prefix="parler_ckpt_")
+    try:
+        path = os.path.join(tmp, "model.pt")
+        torch.save(sd, path)
+        del sd
+        t_write, size = time.perf_counter() - t0, os.path.getsize(path)
+        t0 = time.perf_counter()
+        loaded = P.load_parler_checkpoint(path, t5_cfg, dec_cfg, dac_cfg)
+        t_load = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    diffs = [_tree_diff(loaded[0], trees[0]), _tree_diff(loaded[1], trees[1]), _tree_diff(loaded[2], trees[2], rel=True)]
+    log(f"(a) parler checkpoint (ParlerTTSForConditionalGeneration layout, {n_keys} fp32 tensors, {n_params} numbers, "
+        f"the DAC as weight_g/weight_v pairs): {size / 2**30:.3f} GiB written in {t_write:.1f} s, "
+        f"load_parler_checkpoint {t_load:.1f} s; T5 max abs diff {diffs[0]:.3e}, decoder {diffs[1]:.3e} (want 0), "
+        f"DAC max relative diff {diffs[2]:.3e} (tol {PARLER_CKPT_DAC_REL})")
+    check(diffs[0] == 0.0 and diffs[1] == 0.0, f"loaded T5 / decoder trees differ from the seeded ones: {diffs[:2]}")
+    check(diffs[2] <= PARLER_CKPT_DAC_REL, f"loaded DAC differs from the seeded one: {diffs[2]}")
+
+    def encode_fn(text):  # stand-in for the T5 sentencepiece tokenizer
+        return [ord(c) % t5_cfg.vocab for c in text]
+
+    frames, K = 128, dec_cfg.codebooks
+    ecfg = ParlerEngineConfig(max_frames=frames, temperature=0.0, eos_token=-1)
+    descs = ["A calm female speaker with clear diction.", "A fast male voice, close microphone.",
+             "An old storyteller, warm and slow."]
+    prompts = ["Hello from the checkpoint.", "नमस्ते, यह दूसरा अनुरोध है।", "ನಮಸ್ಕಾರ, ಇದು ಮೂರನೇ ವಿನಂತಿ."]
+    want = {"decode_attention": 2 * dec_cfg.layers * (frames + K - 1)}
+    outs = {}
+    orig = P.dac_decode_codes
+    for name, tr in (("seeded", trees), ("loaded", loaded)):
+        engine = ParlerTTSEngine(tr[0], t5_cfg, tr[1], dec_cfg, tr[2], dac_cfg, ecfg, encode_fn=encode_fn, device=dev)
+        codes = []
+
+        def capture(params, c, *a, **k):  # the codes the engine hands its DAC
+            codes.append(c.clone())
+            return orig(params, c, *a, **k)
+
+        P.dac_decode_codes = capture
+        try:
+            t0 = time.perf_counter()
+            waves = _launched(f"(a) {name} engine, one greedy request of {len(descs)} rows x {frames} frames, bf16",
+                              lambda: engine.synthesize_batch(descs, prompts), want)
+            dt = time.perf_counter() - t0
+        finally:
+            P.dac_decode_codes = orig
+        outs[name] = (codes[0], waves, dt)
+        del engine
+        torch.cuda.empty_cache()
+    (c_s, w_s, dt_s), (c_l, w_l, dt_l) = outs["seeded"], outs["loaded"]
+    same = bool(torch.equal(c_s, c_l))
+    wave_diff = max(float(np.abs(a - b).max()) if a.shape == b.shape else float("inf") for a, b in zip(w_s, w_l))
+    log(f"(a) on {card}: codes {tuple(c_s.shape)} equal: {same}; max abs wave difference {wave_diff:.3e} (tol "
+        f"{PARLER_CKPT_WAVE_TOL}, wave peak {max(float(np.abs(w).max()) for w in w_s):.4f}); request {dt_s:.2f} s "
+        f"seeded, {dt_l:.2f} s loaded")
+    check(same, "codes from the loaded checkpoint differ from the seeded engine's")
+    check(all(len(w) == frames * dac_cfg.hop and np.isfinite(w).all() for w in w_l), "loaded engine's waves")
+    check(wave_diff <= PARLER_CKPT_WAVE_TOL, f"waves of the loaded checkpoint differ: {wave_diff}")
+    launches["decode_attention"]["parler_ckpt"] = 2 * want["decode_attention"]
+
+
+def parler_loss_check(dev, card: str, cfgs, trees) -> None:
+    """(b) ``parler_loss`` and its backward at full decoder width, fp32 and bf16
+    compute over the same fp32 parameters."""
+    from f5tts_tpu_torch.models import parler as P
+    from f5tts_tpu_torch.models.convert import params_from_numpy
+    from f5tts_tpu_torch.train.tree import tree_leaves
+
+    dec_cfg = cfgs[1]
+    K, pad = dec_cfg.codebooks, dec_cfg.vocab
+    b, frames, enc_n, p = 2, 256 - K + 1, 64, 16
+    rng = np.random.default_rng(19)
+    codes = rng.integers(0, dec_cfg.vocab, (b, K, frames))
+    delayed = P.build_delay_pattern(codes, pad, frames + K - 1)
+    full = np.concatenate([np.full((b, K, 1), pad), delayed], axis=2)  # a BOS column: 257 positions, 256 inputs
+    code_mask = np.ones(full.shape, bool)
+    code_mask[1, :, 200:] = False
+    enc = torch.as_tensor(rng.standard_normal((b, enc_n, dec_cfg.cross_dim)), dtype=torch.float32, device=dev)
+    enc_mask = torch.as_tensor(np.arange(enc_n)[None] < np.array([[enc_n], [40]]), device=dev)
+    prompt = torch.as_tensor(rng.integers(0, dec_cfg.prompt_vocab, (b, p)), device=dev)
+    prompt_mask = torch.as_tensor(np.arange(p)[None] >= np.array([[0], [6]]), device=dev)
+    full_t, mask_t = torch.as_tensor(full, device=dev), torch.as_tensor(code_mask, device=dev)
+    params = params_from_numpy(trees[1], dev)
+    leaves = [t for _, t in tree_leaves(params)]
+    for t in leaves:
+        t.requires_grad_(True)
+    res = {}
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        def step():
+            for t in leaves:
+                t.grad = None
+            loss = P.parler_loss(params, dec_cfg, full_t, mask_t, enc, enc_mask, prompt, prompt_mask,
+                                 compute_dtype=dtype)
+            loss.backward()
+            return loss
+
+        _launched(f"(b) parler_loss {name} warm step", step, {})
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = _launched(f"(b) parler_loss {name} step", step, {})
+            times.append(time.perf_counter() - t0)
+        named = {"lm_heads": params["lm_heads"].grad, "embed_tokens": params["embed_tokens"].grad,
+                 "blocks.sa.q": params["blocks"]["sa"]["q"]["w"].grad}
+        grads = [t.grad for t in leaves]
+        finite = all(g is not None and bool(torch.isfinite(g).all()) for g in grads)
+        loss = float(loss.detach())
+        res[name] = (loss, [g.clone() for g in grads] if finite else None)
+        log(f"(b) parler_loss {name} on {card}: b {b} x {full.shape[2] - 1} positions (the delay pattern over {frames} "
+            f"frames), {p} prompt tokens, {enc_n} encoder states: loss {loss:.6f}; step (forward + backward) "
+            f"{[round(1e3 * t, 2) for t in times]} ms, median {1e3 * statistics.median(times):.2f} ms; peak device "
+            f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; every leaf's gradient finite: {finite}; "
+            f"|grad| sums " + ", ".join(f"{k} {float(g.abs().sum()):.4e}" for k, g in named.items()))
+        check(np.isfinite(loss) and finite, f"parler_loss {name}: loss or a gradient not finite")
+        check(all(float(g.abs().sum()) > 0 for g in named.values()), f"parler_loss {name}: a zero gradient")
+    l32, l16 = res["fp32"][0], res["bf16"][0]
+    rel = abs(l16 - l32) / abs(l32)
+    g_rel = max(float(torch.linalg.vector_norm(g16 - g32) / torch.linalg.vector_norm(g32).clamp_min(1e-30))
+                for g16, g32 in zip(res["bf16"][1], res["fp32"][1]))
+    log(f"(b) bf16 loss {l16:.6f} vs fp32 {l32:.6f}: relative {rel:.3e} (tol {PARLER_LOSS_BF16_REL}); the largest "
+        f"relative L2 of a bf16 gradient leaf against fp32 {g_rel:.3e} (not required)")
+    check(rel <= PARLER_LOSS_BF16_REL, f"bf16 parler_loss differs from fp32: {rel}")
+    del params, leaves, res
+    torch.cuda.empty_cache()
+
+
+def ar_branch_check(dev, card: str) -> None:
+    """(c) The AR mel decoder at ``ARConfig()`` + ``VocosConfig()``: the
+    teacher-forcing property in fp32, then ``ARTTSEngine`` at batch 8."""
+    from f5tts_tpu_torch.engine.ar_engine import AREngineConfig, ARTTSEngine
+    from f5tts_tpu_torch.models import ar as A
+    from f5tts_tpu_torch.models import modules as m
+    from f5tts_tpu_torch.models.convert import ar_params_from_numpy, init_ar_numpy, init_vocos_numpy
+    from f5tts_tpu_torch.models.vocos import VocosConfig
+    from f5tts_tpu_torch.ops.rope import rotary_freqs
+    from f5tts_tpu_torch.text.tokenizer import Tokenizer
+    from f5tts_tpu_torch.train.tree import tree_leaves
+
+    tok = Tokenizer.from_file(os.path.join(HERE, "examples", "vocab.txt"))
+    cfg, voc_cfg = A.ARConfig(text_num_embeds=tok.vocab_size), VocosConfig()
+    ar_np, voc_np = init_ar_numpy(cfg, seed=3), init_vocos_numpy(voc_cfg, seed=1)
+    n_params = sum(x.size for _, x in tree_leaves(ar_np))
+
+    # fp32: generation with a stop that never fires against the teacher-forced pass over its own frames
+    params = ar_params_from_numpy(ar_np, dev)
+    texts = ["Hello there, this is the autoregressive branch.", "A second, shorter row."]
+    text = torch.as_tensor(tok.encode(texts, pad_to=64), device=dev)
+    n_gen = 64
+
+    def teacher():
+        gen, lengths = A.ar_generate(params, cfg, text, n_gen, stop_threshold=2.0)
+        with torch.no_grad():
+            h = A._embed_sequence(params, cfg, text, gen[:, : n_gen - 1])
+            freqs = torch.as_tensor(rotary_freqs(h.shape[1], cfg.dim_head), device=dev)
+            valid = torch.cat([text != -1, torch.ones((len(texts), n_gen), dtype=torch.bool, device=dev)], dim=1)
+            for l in range(cfg.depth):
+                h = A._block_apply(A._layer(params["blocks"], l), h, cfg.heads, freqs, valid)
+            nt = text.shape[1]
+            pred = m.linear(params["mel_out"], m.rms_norm(params["norm_out"], h)[:, nt: nt + n_gen])
+        return gen, lengths, pred
+
+    gen, lengths, pred = _launched(f"(c) AR fp32 generation ({len(texts)} x {n_gen} frames, the stop never fires) "
+                                   "and the teacher-forced pass", teacher, {})
+    err = float((gen - pred).abs().max())
+    log(f"(c) AR teacher forcing on {card}: ARConfig() ({n_params} params), fp32, generated frames against the "
+        f"teacher-forced predictions over them: max abs {err:.3e} at peak |mel| {float(gen.abs().max()):.3f} (tol "
+        f"{AR_TEACHER_TOL}); lengths {lengths.tolist()}")
+    check(lengths.tolist() == [n_gen] * len(texts), f"AR lengths {lengths.tolist()} with the stop disabled")
+    check(err <= AR_TEACHER_TOL, f"AR generation differs from teacher forcing: {err}")
+    del params
+    torch.cuda.empty_cache()
+
+    batch, max_frames, short = 8, 1024, 128
+    sents = [f"This is sentence number {i} of the autoregressive request, spoken at an even pace." for i in range(batch)]
+    engines = {n: ARTTSEngine(ar_np, cfg, voc_np, tok, AREngineConfig(vocoder=voc_cfg, text_pad=256, max_frames=n),
+                              device=dev) for n in (short, max_frames)}
+    hop, sr = engines[max_frames].cfg.hop_length, engines[max_frames].cfg.sample_rate
+
+    def run(n):
+        waves = engines[n].synthesize_batch(sents)
+        check(len(waves) == batch and all(len(w) % hop == 0 and np.isfinite(w).all() for w in waves),
+              "AR engine waves not finite or not whole frames")
+        lengths = [len(w) // hop + 1 for w in waves]
+        check(all(1 <= x <= n for x in lengths), f"AR lengths out of range: {lengths}")
+        return lengths
+
+    _launched(f"(c) ARTTSEngine warm call at {short} positions", lambda: run(short), {})
+    torch.cuda.reset_peak_memory_stats()
+    iters, lens = [], None
+    for i in range(3):
+        t0 = time.perf_counter()
+        lens = _launched(f"(c) ARTTSEngine call {i + 1}", lambda: run(max_frames), {})
+        iters.append(time.perf_counter() - t0)
+    dt = statistics.median(iters)
+    audio_s, budget_s = sum(lens) * hop / sr, batch * max_frames * hop / sr
+    log(f"(c) ARTTSEngine.synthesize_batch on {card}: batch {batch}, text_pad 256, max_frames {max_frames}, bf16: lengths "
+        f"{lens} ({audio_s:.2f} s of audio; the random stop head decides them); iter_s {[round(t, 4) for t in iters]}, "
+        f"median {dt:.4f} s: {audio_s / dt:.2f} audio-s/s ({budget_s / dt:.2f} for rows that used all {max_frames} "
+        f"frames: the decode runs every position whatever the stop), {1e3 * dt / max_frames:.3f} ms per position; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    t0 = time.perf_counter()
+    run(short)
+    dt_short = time.perf_counter() - t0
+    _, counts = profile_by_family(
+        f"one ARTTSEngine call at {short} positions (batch {batch}, bf16)",
+        lambda: _launched(f"(c) ARTTSEngine call at {short} positions under the profiler", lambda: run(short), {}),
+        (("softmax", ("softmax",)), ("gather/copy", ("index", "gather", "copy", "cat", "Memcpy", "Memset"))),
+        top=8, device_only=True, wall_plain_ms=dt_short * 1e3)
+    log(f"(c) {sum(counts.values()) / short:.1f} device launches per position ({sum(counts.values())} in a call of "
+        f"{short} positions, the prefill and the vocoder included)")
+    del engines
+    torch.cuda.empty_cache()
+
+
+def ar_phase(dev, card: str, launches: dict, cfgs, trees) -> None:
+    """Phase 19: (a) the Parler checkpoint, (b) ``parler_loss``, (c) the AR mel decoder."""
+    t_phase = time.perf_counter()
+    parler_ckpt_check(dev, card, launches, cfgs, trees)
+    parler_loss_check(dev, card, cfgs, trees)
+    ar_branch_check(dev, card)
+    log(f"autoregressive leftovers phase took {time.perf_counter() - t_phase:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -3158,6 +3563,8 @@ def main():
                     help="build the kernels and run only the distillation phase (no result lines)")
     ap.add_argument("--parallel-only", action="store_true",
                     help="build the kernels and run only the multi-device phase (no result lines)")
+    ap.add_argument("--ar-only", action="store_true",
+                    help="build the kernels and run only the autoregressive leftovers phase (no result lines)")
     ap.add_argument("--kernels-only", action="store_true",
                     help="build and check the kernels (and run the ablation), skip the engine, bench, int8, "
                          "training, distillation and Parler phases")
@@ -3184,6 +3591,11 @@ def main():
 
     from f5tts_tpu_torch.ops.kernels.ablate_attention import ablate_attention
 
+    if args.ar_only:
+        launches = {"decode_attention": {}}
+        ar_phase(dev, card, launches, *parler_full_trees())
+        log(f"launches {launches}")
+        return
     if args.serving_only or args.backbones_only or args.distill_only or args.parallel_only:
         from f5tts_tpu_torch.models.convert import init_dit_numpy, init_vocos_numpy
         from f5tts_tpu_torch.models.dit import DiTConfig
@@ -3228,8 +3640,12 @@ def main():
         distill_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card, launches)  # phase 17
         parallel_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card, launches)  # phase 18
         del dit_np, voc_np
-        parler_phase(dev, card, launches)  # indic-parler-tts width and depth, random weights
-        log(f"ablate_attention launches through the engine, int8, serving, training, distillation and Parler phases: "
+        parler = parler_full_trees()  # indic-parler-tts width and depth, random weights
+        parler_phase(dev, card, launches, *parler)
+        ar_phase(dev, card, launches, *parler)  # phase 19
+        del parler
+        log(f"ablate_attention launches through the engine, int8, serving, training, distillation, Parler and "
+            f"autoregressive phases: "
             f"{ablate_attention.launches} (want 0)")
         check(ablate_attention.launches == 0, "the ablation kernel ran on a serving or training path")
     for k in kernels:

@@ -1,31 +1,83 @@
-"""ParlerTTS-architecture engine (counterpart of
-``f5tts_tpu/engine/ar_engine.py:ParlerTTSEngine``): style description + text
--> 44.1 kHz waveform. T5-encode the description, generate DAC codes with the
-delay-pattern KV-cache decode, vocode with the DAC decoder.
+"""The two autoregressive engines (counterpart of
+``f5tts_tpu/engine/ar_engine.py``).
 
-The engine keeps a serving copy of the parameters on its device in
-``cfg.compute_dtype`` and runs the decode step's cache attention through
-``ops/kernels/decode_attention.py`` (``decode_attn="kernel"``: the CUDA kernel
-on a GPU, the plain version on the CPU). PyTorch runs eagerly, so there is
-nothing to compile per (batch, frames) bucket: the JAX engine's program caches
-have no counterpart, the batch buckets only bound the shapes the card sees,
-and the streaming path's tail segment is not padded.
+``ARTTSEngine`` serves the AR mel decoder of ``models/ar.py``: tokenize the
+text, generate mel frames at a fixed frame budget with the KV-cache decode,
+zero the frames past each row's predicted length, vocode with Vocos, trim.
+It shares the tokenizer and Vocos with the flow engine.
+
+``ParlerTTSEngine`` serves the ParlerTTS architecture: style description +
+text -> 44.1 kHz waveform. T5-encode the description, generate DAC codes with
+the delay-pattern KV-cache decode, vocode with the DAC decoder. It runs the
+decode step's cache attention through ``ops/kernels/decode_attention.py``
+(``decode_attn="kernel"``: the CUDA kernel on a GPU, the plain version on the
+CPU).
+
+Each engine keeps a serving copy of its parameters on its device in
+``cfg.compute_dtype``. PyTorch runs eagerly, so there is nothing to compile
+per (batch, frames) bucket: the JAX engines' program caches have no
+counterpart, the batch buckets only bound the shapes the card sees, and the
+streaming path's tail segment is not padded.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from collections import OrderedDict
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from f5tts_tpu_torch.models import parler as P
-from f5tts_tpu_torch.models.convert import parler_params_from_numpy
+from f5tts_tpu_torch.models.ar import ARConfig, ar_generate
+from f5tts_tpu_torch.models.convert import ar_params_from_numpy, parler_params_from_numpy, vocos_params_from_numpy
+from f5tts_tpu_torch.models.vocos import VocosConfig, vocos_decode
 from f5tts_tpu_torch.utils.device import resolve_device
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+@dataclass(frozen=True)
+class AREngineConfig:
+    vocoder: VocosConfig = field(default_factory=VocosConfig)
+    text_pad: int = 256
+    max_frames: int = 1024
+    hop_length: int = 256
+    sample_rate: int = 24000
+    compute_dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        if self.compute_dtype not in _DTYPES:
+            raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}, got {self.compute_dtype!r}")
+
+
+class ARTTSEngine:
+    """Batched serving wrapper over ``models/ar.py:ar_generate`` + Vocos."""
+
+    def __init__(self, ar_params, ar_cfg: ARConfig, vocos_params, tokenizer, cfg: AREngineConfig = AREngineConfig(),
+                 device: str | torch.device | None = None):
+        """``ar_params`` / ``vocos_params``: the JAX package's numpy params
+        trees (or ``init_ar_numpy`` / ``init_vocos_numpy``); ``tokenizer``:
+        ``text/tokenizer.py:Tokenizer``."""
+        self.device = resolve_device(device)
+        self.compute_dtype = _DTYPES[cfg.compute_dtype]
+        self.ar_params = ar_params_from_numpy(ar_params, self.device, self.compute_dtype)
+        self.vocos_params = vocos_params_from_numpy(vocos_params, self.device, self.compute_dtype)
+        self.ar_cfg, self.tokenizer, self.cfg = ar_cfg, tokenizer, cfg
+
+    @torch.no_grad()
+    def synthesize_batch(self, texts: list[str]) -> list[np.ndarray]:
+        """One wave per text (float32 at ``cfg.sample_rate``), trimmed to
+        ``(length - 1) * hop_length`` samples of the row's generated length."""
+        cfg = self.cfg
+        ids = torch.as_tensor(self.tokenizer.encode(texts, pad_to=cfg.text_pad), device=self.device)
+        mel, lengths = ar_generate(self.ar_params, self.ar_cfg, ids, cfg.max_frames, compute_dtype=self.compute_dtype)
+        keep = torch.arange(cfg.max_frames, device=self.device)[None, :, None] < lengths[:, None, None]
+        wave = vocos_decode(self.vocos_params, torch.where(keep, mel, 0.0), cfg.vocoder,
+                            compute_dtype=self.compute_dtype).float().cpu().numpy()
+        lengths = lengths.cpu().numpy()
+        return [wave[i, : max((int(lengths[i]) - 1) * cfg.hop_length, 0)] for i in range(len(texts))]
 
 
 @dataclass(frozen=True)

@@ -1,5 +1,6 @@
-"""Model cores: DiT / UNetT / MMDiT backbones, the CFM loss, Vocos, BigVGAN
-and Parler, as plain functions over parameter trees of tensors."""
+"""Model cores: DiT / UNetT / MMDiT backbones, the CFM loss, Vocos, BigVGAN,
+Parler and the AR mel decoder, as plain functions over parameter trees of
+tensors."""
 
 
 def backbone_fns(model_cfg):

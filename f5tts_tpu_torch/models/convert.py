@@ -16,9 +16,10 @@ convert to that numpy tree here, array for array what the JAX converters
 give. Linear ``(out, in)`` -> ``(in, out)``; Conv1d ``(out, in/g, k)`` ->
 ``(k, in/g, out)``; GRN ``(1, 1, d)`` -> ``(d,)``; EMA weights stored as
 ``ema_model.*`` with ``initted``/``step`` keys; stale mel-filterbank buffers
-dropped. The Parler branch's trees cross through
-``parler_params_from_numpy``; its checkpoint converters exist only in the JAX
-package so far.
+dropped. The Parler branch's checkpoint converters live beside its model
+(``models/parler.py:load_parler_checkpoint``, a ParlerTTS state dict -> the
+three numpy trees); its trees cross through ``parler_params_from_numpy``, the
+AR mel decoder's through ``ar_params_from_numpy``.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import math
 import numpy as np
 import torch
 
+from f5tts_tpu_torch.models.ar import ARConfig
 from f5tts_tpu_torch.models.bigvgan import BigVGANConfig
 from f5tts_tpu_torch.models.dit import DiTConfig
 from f5tts_tpu_torch.models.mmdit import MMDiTConfig
@@ -570,6 +572,13 @@ def parler_params_from_numpy(t5: dict, dec: dict, dac: dict, device, dtype: torc
             params_from_numpy(dac, device, dtype))
 
 
+def ar_params_from_numpy(tree: dict, device, dtype: torch.dtype | None = None) -> dict:
+    """The JAX AR mel-decoder params tree (numpy, stacked blocks; ``init_ar``
+    or ``init_ar_numpy``) as the port's tensors."""
+    _require(tree, ("text_embed", "mel_in", "bos", "blocks", "norm_out", "mel_out", "stop_out"), "AR decoder")
+    return params_from_numpy(tree, device, dtype)
+
+
 # ---------------------------------------------------------------------------
 # seeded random init (torch's default Linear/Conv1d init, in numpy)
 # ---------------------------------------------------------------------------
@@ -764,6 +773,29 @@ def init_dac_numpy(cfg: DacConfig = DacConfig(), seed: int = 2) -> dict:
 
 def _init_ff(init: _Init, dim: int, mult: int, depth: int | None = None) -> dict:
     return {"in": init.linear(dim, dim * mult, depth=depth), "out": init.linear(dim * mult, dim, depth=depth)}
+
+
+def init_ar_numpy(cfg: ARConfig = ARConfig(), seed: int = 0) -> dict:
+    """Random AR mel-decoder params tree (numpy fp32) with the JAX ``init_ar``
+    tree, shapes and init distributions (blocks stacked on a depth axis, RMS
+    gains at 1, ``bos`` ~ N(0, 0.02^2))."""
+    init = _Init(seed)
+    d, inner = cfg.depth, cfg.inner
+    return {
+        "text_embed": {"w": init.rng.standard_normal((cfg.text_num_embeds + 1, cfg.dim), dtype=np.float32)},
+        "mel_in": init.linear(cfg.mel_dim, cfg.dim),
+        "bos": init.rng.standard_normal((cfg.dim,), dtype=np.float32) * np.float32(0.02),
+        "blocks": {
+            "attn_norm": {"g": np.ones((d, cfg.dim), np.float32)},
+            "attn": {"to_q": init.linear(cfg.dim, inner, depth=d), "to_k": init.linear(cfg.dim, inner, depth=d),
+                     "to_v": init.linear(cfg.dim, inner, depth=d), "to_out": init.linear(inner, cfg.dim, depth=d)},
+            "ff_norm": {"g": np.ones((d, cfg.dim), np.float32)},
+            "ff": _init_ff(init, cfg.dim, cfg.ff_mult, d),
+        },
+        "norm_out": {"g": np.ones((cfg.dim,), np.float32)},
+        "mel_out": init.linear(cfg.dim, cfg.mel_dim),
+        "stop_out": init.linear(cfg.dim, 1),
+    }
 
 
 def init_unett_numpy(cfg: UNetTConfig, seed: int = 0) -> dict:

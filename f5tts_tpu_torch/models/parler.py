@@ -10,13 +10,19 @@ out)`` convs; see ``models/convert.py:parler_params_from_numpy``).
 
 - ``t5_encode``             -- T5 encoder (relative-position-bias attention,
                                gated ``gelu_new`` FF, RMS norm).
-- ``parler_decoder_forward`` -- teacher-forced decoder pass.
+- ``parler_decoder_forward`` -- teacher-forced decoder pass; ``parler_loss``
+                               its cross-entropy over delayed codes.
 - ``parler_generate``        -- incremental decode with a KV cache, per-codebook
                                sampling and the delay pattern applied in the
                                loop.
 - ``parler_decode_segment``  -- the same decode over a sub-range of positions,
                                the carry handed between calls (streaming).
 - ``dac_decode_codes``       -- DAC codec decoder.
+- ``load_parler_checkpoint`` -- one ParlerTTSForConditionalGeneration state
+                               dict -> the three numpy trees
+                               (``convert_t5_encoder``,
+                               ``convert_parler_decoder``, ``convert_dac``,
+                               ``descript_dac_to_hf_keys``).
 
 The decode step's attention against the caches (self- and cross-attention of
 every layer at every position) is ``ops/kernels/decode_attention.py``:
@@ -317,6 +323,27 @@ def parler_decoder_forward(
         h = _ff(blk, h, cfg.ln_eps)
     h = _ln(params["final_ln"], h, cfg.ln_eps)
     return _lm_logits(params, h[:, p:])
+
+
+def parler_loss(params, cfg: ParlerDecoderConfig, codes, code_mask, enc, enc_mask=None, prompt_ids=None,
+                prompt_mask=None, pad_token: int | None = None, compute_dtype: torch.dtype = torch.float32):
+    """Teacher-forced next-token cross-entropy, averaged over valid positions
+    and codebooks; differentiable (autograd through ``parler_decoder_forward``).
+    ``codes`` already carries the delay pattern (pad-filled); positions where
+    ``code_mask`` is False, or whose target is the pad slot, are excluded (HF
+    trains with those labels at -100). ``pad_token`` defaults to the extra
+    pad/bos slot ``cfg.vocab`` (what ``build_delay_pattern`` fills with); a
+    negative value disables the pad exclusion. Targets are clamped to
+    ``vocab - 1`` before the gather."""
+    inp, tgt = codes[..., :-1], codes[..., 1:]
+    logits = parler_decoder_forward(params, cfg, inp, enc, enc_mask, prompt_ids, prompt_mask, compute_dtype)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, tgt.long().clamp_max(cfg.vocab - 1)[..., None])[..., 0]
+    w = code_mask[..., 1:].float()
+    pad = cfg.vocab if pad_token is None else pad_token
+    if pad >= 0:  # without this, pad targets clamp to real token vocab-1 and get trained
+        w = w * (tgt != pad)
+    return (nll * w).sum() / w.sum().clamp_min(1.0)
 
 
 # --- delay pattern -----------------------------------------------------------
@@ -751,3 +778,221 @@ def dac_decode_codes(params, codes: torch.Tensor, cfg: DacConfig = DacConfig(),
     x = _snake(x, params["alpha_out"])
     x = m.conv1d(params["conv2"], x, padding=3)
     return torch.tanh(x[..., 0])
+
+
+# ---------------------------------------------------------------------------
+# checkpoint converters: torch state dicts -> the JAX package's numpy trees
+# ---------------------------------------------------------------------------
+
+
+def _w(sd, name):
+    return np.asarray(sd[name], np.float32)
+
+
+def _lin_t(sd, prefix):
+    """torch Linear (out, in) -> {'w': (in, out)} (+ bias), as fp32 numpy."""
+    from f5tts_tpu_torch.models.convert import _lin
+
+    return {k: np.asarray(v, np.float32) for k, v in _lin(sd, prefix).items()}
+
+
+def convert_t5_encoder(sd: dict, cfg: T5Config, prefix: str = "") -> dict:
+    """T5EncoderModel state dict (optionally under ``text_encoder.``) -> the
+    numpy tree of ``init_t5_numpy``.
+
+    Keys: ``shared.weight`` / ``encoder.embed_tokens.weight``,
+    ``encoder.block.{i}.layer.0.SelfAttention.{q,k,v,o}.weight``,
+    ``encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight``,
+    ``encoder.block.{i}.layer.{0,1}.layer_norm.weight``,
+    ``encoder.block.{i}.layer.1.DenseReluDense.{wi_0,wi_1,wo}.weight``,
+    ``encoder.final_layer_norm.weight``."""
+    from f5tts_tpu_torch.models.convert import _fp32, _stack
+
+    e = f"{prefix}encoder"
+    emb_key = f"{e}.embed_tokens.weight"
+    if emb_key not in sd:
+        emb_key = f"{prefix}shared.weight"
+    blocks = []
+    for i in range(cfg.layers):
+        b0, b1 = f"{e}.block.{i}.layer.0", f"{e}.block.{i}.layer.1"
+        blocks.append({
+            "ln1": {"g": _w(sd, f"{b0}.layer_norm.weight")},
+            **{name: _lin_t(sd, f"{b0}.SelfAttention.{name}") for name in ("q", "k", "v", "o")},
+            "ln2": {"g": _w(sd, f"{b1}.layer_norm.weight")},
+            **{name: _lin_t(sd, f"{b1}.DenseReluDense.{name}") for name in ("wi_0", "wi_1", "wo")},
+        })
+    return _fp32({
+        "embed": _w(sd, emb_key),
+        "rel_bias": _w(sd, f"{e}.block.0.layer.0.SelfAttention.relative_attention_bias.weight"),
+        "blocks": _stack(blocks),
+        "final_ln": {"g": _w(sd, f"{e}.final_layer_norm.weight")},
+    })
+
+
+def convert_parler_decoder(sd: dict, cfg: ParlerDecoderConfig, prefix: str = "model.decoder.",
+                           lm_prefix: str = "lm_heads.", embed_prompts_key: str | None = None,
+                           enc_proj_prefix: str | None = None) -> dict:
+    """Musicgen/ParlerTTS decoder state dict -> the numpy tree of
+    ``init_parler_decoder_numpy``.
+
+    For a full ParlerTTS checkpoint pass ``prefix='decoder.model.decoder.'``,
+    ``lm_prefix='decoder.lm_heads.'``, ``embed_prompts_key=
+    'embed_prompts.weight'`` and ``enc_proj_prefix='enc_to_dec_proj'``. With no
+    ``embed_prompts_key`` the prompt table is zeros."""
+    from f5tts_tpu_torch.models.convert import _fp32, _stack
+
+    def ln(p):
+        return {"w": _w(sd, f"{p}.weight"), "b": _w(sd, f"{p}.bias")}
+
+    def attn(p):
+        return {"q": _lin_t(sd, f"{p}.q_proj"), "k": _lin_t(sd, f"{p}.k_proj"),
+                "v": _lin_t(sd, f"{p}.v_proj"), "o": _lin_t(sd, f"{p}.out_proj")}
+
+    blocks = []
+    for i in range(cfg.layers):
+        L = f"{prefix}layers.{i}"
+        blocks.append({
+            "ln_sa": ln(f"{L}.self_attn_layer_norm"), "sa": attn(f"{L}.self_attn"),
+            "ln_ca": ln(f"{L}.encoder_attn_layer_norm"), "ca": attn(f"{L}.encoder_attn"),
+            "ln_ff": ln(f"{L}.final_layer_norm"),
+            "fc1": _lin_t(sd, f"{L}.fc1"), "fc2": _lin_t(sd, f"{L}.fc2"),
+        })
+    params = {
+        "embed_tokens": np.stack([_w(sd, f"{prefix}embed_tokens.{k}.weight") for k in range(cfg.codebooks)]),
+        "blocks": _stack(blocks),
+        "final_ln": ln(f"{prefix}layer_norm"),
+        "lm_heads": np.stack([_w(sd, f"{lm_prefix}{k}.weight").T for k in range(cfg.codebooks)]),
+        "embed_prompts": (_w(sd, embed_prompts_key) if embed_prompts_key is not None
+                          else np.zeros((cfg.prompt_vocab, cfg.hidden), np.float32)),
+    }
+    if enc_proj_prefix is not None and f"{enc_proj_prefix}.weight" in sd:
+        params["enc_proj"] = _lin_t(sd, enc_proj_prefix)
+    return _fp32(params)
+
+
+def _conv_wn(sd, prefix):
+    """Conv weight and bias, folding weight norm where the checkpoint keeps it
+    (``parametrizations.weight.original{0,1}``, or the ``weight_g`` /
+    ``weight_v`` pair of descript-audio-codec checkpoints):
+    ``g * v / max(||v||, 1e-12)``, the norm over every axis but the first."""
+    if f"{prefix}.weight" in sd:
+        return _w(sd, f"{prefix}.weight"), _w(sd, f"{prefix}.bias")
+    if f"{prefix}.weight_g" in sd:
+        g, v = _w(sd, f"{prefix}.weight_g"), _w(sd, f"{prefix}.weight_v")
+    else:
+        g = _w(sd, f"{prefix}.parametrizations.weight.original0")
+        v = _w(sd, f"{prefix}.parametrizations.weight.original1")
+    norm = np.sqrt(np.sum(v * v, axis=tuple(range(1, v.ndim)), keepdims=True))
+    return g * v / np.maximum(norm, 1e-12), _w(sd, f"{prefix}.bias")
+
+
+def convert_dac(sd: dict, cfg: DacConfig = DacConfig(), prefix: str = "") -> dict:
+    """transformers DacModel state dict (decoder + quantizer) -> the numpy tree
+    of ``init_dac_numpy``, in the JAX layout: Conv1d ``(out, in, k)`` ->
+    ``(k, in, out)``; ConvTranspose1d ``(in, out, k)`` -> ``(k, in, out)``
+    flipped along time (``parler_params_from_numpy`` undoes the flip)."""
+    from f5tts_tpu_torch.models.convert import _fp32
+
+    def conv(p):
+        w, b = _conv_wn(sd, p)
+        return {"w": np.ascontiguousarray(w.transpose(2, 1, 0)), "b": b}
+
+    def convt(p):
+        w, b = _conv_wn(sd, p)
+        return {"w": np.ascontiguousarray(w.transpose(2, 0, 1)[::-1]), "b": b}
+
+    q = f"{prefix}quantizer.quantizers"
+    n = range(cfg.num_codebooks)
+    quant = {
+        "codebook": np.stack([_w(sd, f"{q}.{i}.codebook.weight") for i in n]),
+        "proj_w": np.stack([_conv_wn(sd, f"{q}.{i}.out_proj")[0].transpose(2, 1, 0)[0] for i in n]),
+        "proj_b": np.stack([_w(sd, f"{q}.{i}.out_proj.bias") for i in n]),
+    }
+    d = f"{prefix}decoder"
+    blocks = []
+    for i in range(len(cfg.rates)):
+        B = f"{d}.block.{i}"
+        blocks.append({
+            "alpha": _w(sd, f"{B}.snake1.alpha").reshape(-1),
+            "convt": convt(f"{B}.conv_t1"),
+            "res": [{"alpha1": _w(sd, f"{B}.res_unit{j}.snake1.alpha").reshape(-1),
+                     "conv1": conv(f"{B}.res_unit{j}.conv1"),
+                     "alpha2": _w(sd, f"{B}.res_unit{j}.snake2.alpha").reshape(-1),
+                     "conv2": conv(f"{B}.res_unit{j}.conv2")} for j in (1, 2, 3)],
+        })
+    return _fp32({
+        "quant": quant,
+        "conv1": conv(f"{d}.conv1"),
+        "blocks": blocks,
+        "alpha_out": _w(sd, f"{d}.snake1.alpha").reshape(-1),
+        "conv2": conv(f"{d}.conv2"),
+    })
+
+
+def _descript_renames(cfg: DacConfig) -> dict[str, str]:
+    """descript-audio-codec decoder key -> transformers DacModel key."""
+    nb = len(cfg.rates)
+    ren: dict[str, str] = {}
+
+    def unit(src, dst):
+        for suf in ("weight", "bias", "weight_g", "weight_v", "alpha",
+                    "parametrizations.weight.original0", "parametrizations.weight.original1"):
+            ren[f"{src}.{suf}"] = f"{dst}.{suf}"
+
+    unit("decoder.model.0", "decoder.conv1")
+    for i in range(nb):
+        B, H = f"decoder.model.{1 + i}", f"decoder.block.{i}"
+        unit(f"{B}.block.0", f"{H}.snake1")
+        unit(f"{B}.block.1", f"{H}.conv_t1")
+        for j in range(3):
+            R, RH = f"{B}.block.{2 + j}", f"{H}.res_unit{j + 1}"
+            for s, t in enumerate(("snake1", "conv1", "snake2", "conv2")):
+                unit(f"{R}.block.{s}", f"{RH}.{t}")
+    unit(f"decoder.model.{1 + nb}", "decoder.snake1")
+    unit(f"decoder.model.{2 + nb}", "decoder.conv2")
+    return ren
+
+
+def descript_dac_to_hf_keys(sd: dict, cfg: DacConfig = DacConfig(), prefix: str = "") -> dict:
+    """Rename descript-audio-codec state-dict keys (what real ParlerTTS
+    checkpoints embed under ``audio_encoder.model.``) to the transformers
+    DacModel layout ``convert_dac`` reads. Only keys under ``prefix`` are kept,
+    the prefix stripped.
+
+    descript's decoder is a positional ``nn.Sequential``: ``decoder.model.0``
+    the first conv; ``decoder.model.{1+i}`` decoder block i, whose
+    ``block.0`` is the snake, ``block.1`` the transposed conv and
+    ``block.{2..4}`` the residual units (inner ``block.{0..3}``: snake, conv
+    k7, snake, conv k1); then the last snake and conv. Quantizer names already
+    match. Weight-norm tensors pass through for ``_conv_wn``."""
+    ren = _descript_renames(cfg)
+    out = {}
+    for k, v in sd.items():
+        if prefix and not k.startswith(prefix):
+            continue
+        k = k[len(prefix):]
+        out[ren.get(k, k)] = v
+    return out
+
+
+def load_parler_checkpoint(path: str, t5_cfg: T5Config | None = None, dec_cfg: ParlerDecoderConfig | None = None,
+                           dac_cfg: DacConfig | None = None):
+    """One ParlerTTSForConditionalGeneration state dict (``.pt`` /
+    ``.safetensors``) -> ``(t5, decoder, dac)`` numpy trees, which
+    ``parler_params_from_numpy`` (or ``ParlerTTSEngine``) takes.
+
+    The HF layout ``ai4bharat/indic-parler-tts`` ships: the T5 description
+    encoder under ``text_encoder.``, the codebook decoder under
+    ``decoder.model.decoder.`` with LM heads at ``decoder.lm_heads.``, prompt
+    embeddings at ``embed_prompts.weight``, an optional ``enc_to_dec_proj``,
+    and the DAC under ``audio_encoder.model.`` in descript's positional layout
+    (HF-named DAC keys pass through)."""
+    from f5tts_tpu_torch.models.convert import load_torch_state_dict
+
+    sd = load_torch_state_dict(path)
+    t5_cfg, dec_cfg, dac_cfg = t5_cfg or T5Config(), dec_cfg or ParlerDecoderConfig(), dac_cfg or DacConfig()
+    t5 = convert_t5_encoder(sd, t5_cfg, prefix="text_encoder.")
+    dec = convert_parler_decoder(sd, dec_cfg, prefix="decoder.model.decoder.", lm_prefix="decoder.lm_heads.",
+                                 embed_prompts_key="embed_prompts.weight", enc_proj_prefix="enc_to_dec_proj")
+    dac = convert_dac(descript_dac_to_hf_keys(sd, dac_cfg, prefix="audio_encoder.model."), dac_cfg)
+    return t5, dec, dac

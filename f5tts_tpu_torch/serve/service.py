@@ -16,9 +16,12 @@ Checkpoints: torch ``.pt``/``.pth``/``.bin``/``.ckpt``/``.safetensors`` files
 ``.npz`` params trees (``cli/convert.py`` or ``f5tpu-convert`` output) and
 checkpoint directories of the port's ``Trainer`` (their EMA params). The
 vocoder is Vocos or, with ``vocoder_type="bigvgan"``, BigVGAN with the
-``bigvgan`` mel flavor, as in the JAX server. Parler checkpoints are not
-ported yet (ROADMAP A.6) and raise at load; the Parler branch serves
-``demo_tiny`` random weights with an ``ord(c) % vocab`` stand-in tokenizer.
+``bigvgan`` mel flavor, as in the JAX server. The Parler branch
+(``tts_model="parler"``) reads one ParlerTTSForConditionalGeneration state
+dict (``parler_ckpt``) and a local T5 tokenizer directory
+(``parler_tokenizer``, through ``transformers.AutoTokenizer``), or with
+``demo_tiny`` serves random weights with an ``ord(c) % vocab`` stand-in
+tokenizer.
 """
 
 from __future__ import annotations
@@ -229,22 +232,35 @@ class ModelService:
         44.1 kHz DAC audio out, through the window batcher."""
         from f5tts_tpu_torch.engine.ar_engine import ParlerEngineConfig, ParlerTTSEngine
         from f5tts_tpu_torch.models import parler as P
-        from f5tts_tpu_torch.models.convert import init_dac_numpy, init_parler_decoder_numpy, init_t5_numpy
 
         s = self.settings
-        if not s.demo_tiny:
-            raise ValueError("tts_model=parler: Parler checkpoints are not read by the port yet (ROADMAP A.6); "
-                             "demo_tiny serves random weights")
-        t5 = P.T5Config(vocab=60, d_model=24, d_kv=6, d_ff=32, heads=4, layers=2, rel_buckets=8, rel_max_dist=20)
-        dec = P.ParlerDecoderConfig(vocab=40, codebooks=4, hidden=32, layers=2, heads=4, ffn=48, cross_dim=24,
-                                    prompt_vocab=60)
-        dac = P.DacConfig(num_codebooks=4, codebook_size=40, codebook_dim=6, latent_dim=24, decoder_dim=16,
-                          rates=(4, 2))
-        ecfg = ParlerEngineConfig(max_frames=32, desc_pad=64, prompt_pad=64, temperature=0.0, eos_token=-1,
-                                  compute_dtype="float32", batch_buckets=(1, 2, 4))
-        engine = ParlerTTSEngine(init_t5_numpy(t5, seed=0), t5, init_parler_decoder_numpy(dec, seed=1), dec,
-                                 init_dac_numpy(dac, seed=2), dac, ecfg,
-                                 encode_fn=lambda txt: [ord(c) % t5.vocab for c in txt], device=s.device)
+        if s.demo_tiny:
+            from f5tts_tpu_torch.models.convert import init_dac_numpy, init_parler_decoder_numpy, init_t5_numpy
+
+            t5 = P.T5Config(vocab=60, d_model=24, d_kv=6, d_ff=32, heads=4, layers=2, rel_buckets=8,
+                            rel_max_dist=20)
+            dec = P.ParlerDecoderConfig(vocab=40, codebooks=4, hidden=32, layers=2, heads=4, ffn=48, cross_dim=24,
+                                        prompt_vocab=60)
+            dac = P.DacConfig(num_codebooks=4, codebook_size=40, codebook_dim=6, latent_dim=24, decoder_dim=16,
+                              rates=(4, 2))
+            trees = init_t5_numpy(t5, seed=0), init_parler_decoder_numpy(dec, seed=1), init_dac_numpy(dac, seed=2)
+            encode_fn = lambda txt: [ord(c) % t5.vocab for c in txt]  # noqa: E731
+            ecfg = ParlerEngineConfig(max_frames=32, desc_pad=64, prompt_pad=64, temperature=0.0, eos_token=-1,
+                                      compute_dtype="float32", batch_buckets=(1, 2, 4))
+        else:
+            if not s.parler_ckpt or not s.parler_tokenizer:
+                raise ValueError("tts_model=parler needs F5TPU_PARLER_CKPT and "
+                                 "F5TPU_PARLER_TOKENIZER (local T5 tokenizer dir)")
+            from transformers import AutoTokenizer
+
+            tok = AutoTokenizer.from_pretrained(s.parler_tokenizer)
+            encode_fn = lambda txt: tok(txt).input_ids  # noqa: E731
+            t5, dec, dac = P.T5Config(), P.ParlerDecoderConfig(), P.DacConfig()
+            trees = P.load_parler_checkpoint(s.parler_ckpt, t5, dec, dac)
+            ecfg = ParlerEngineConfig(max_frames=s.parler_max_frames, desc_pad=s.parler_desc_pad,
+                                      prompt_pad=s.parler_prompt_pad, compute_dtype=s.dtype)
+        engine = ParlerTTSEngine(trees[0], t5, trees[1], dec, trees[2], dac, ecfg, encode_fn=encode_fn,
+                                 device=s.device)
         if s.warmup:
             batches = [int(v) for v in str(s.warmup_batches).split(",") if v.strip()] or [1]
             engine.warmup(batches)

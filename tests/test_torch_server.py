@@ -257,13 +257,15 @@ def test_server_sampler_knobs_and_batchers():
 
 
 def test_unported_models_raise_at_load(tmp_path):
-    """Parler checkpoints still raise; BigVGAN (A.5) and torch checkpoints
-    (A.3) are read now, and a file that is no checkpoint raises naming itself."""
+    """Parler without a checkpoint and a tokenizer raises the JAX server's
+    error (Parler checkpoints are read since A.6); BigVGAN (A.5) and torch
+    checkpoints (A.3) are read, and a file that is no checkpoint raises naming
+    itself."""
     svc = ModelService(_settings(vocoder_type="bigvgan"))
     svc.load()
     assert svc.engine.cfg.vocoder_type == "bigvgan"
     svc.unload()
-    with pytest.raises(ValueError, match="A.6"):
+    with pytest.raises(ValueError, match="needs F5TPU_PARLER_CKPT and F5TPU_PARLER_TOKENIZER"):
         ModelService(_settings(demo_tiny=False, tts_model="parler")).load()
     (tmp_path / "vocab.txt").write_text("a\nb\n")
     for ckpt, what in [("model.safetensors", "model.safetensors: cannot read"), ("model.pt", "model.pt: cannot read"),
