@@ -88,7 +88,14 @@ Phases, each of which fails the run (non-zero exit) on any error:
    the bf16 ``torch.matmul`` of the same shape (yardsticks only) and the
    bound; eager times beside the plain version and PyTorch's quantize +
    ``torch._int_mm`` + rescale; the rates of the ``mma.sync`` and ``wgmma``
-   s8 instructions alone;
+   s8 instructions alone; then kernel 5's tensor-parallel modes (a given row
+   abs-max, the raw int32 accumulators) on both paths at the row-parallel
+   shapes of F5-TTS Base at TP 2 (M 4096, K 512 and 1024) and at M 16384,
+   and its two companion kernels ``row_amax`` and ``rescale_rows``: all
+   bit-equal to their plain versions, two K-halves summed and rescaled equal
+   to the whole linear, device times in a CUDA graph beside the plain
+   versions, ``torch.linalg.vector_norm(inf)`` (the abs-max's library call)
+   and the bounds;
 10. int8 engine (after phase 4): ``TTSEngine(EngineConfig(quantization="int8"))``
    at F5-TTS Base + Vocos: one request with exact launch counts (quant_matmul
    6 x 22, attention 22, its RoPE pre-pass 22, conv-pos 1 per DiT forward), one DiT forward and one
@@ -196,7 +203,21 @@ Phases, each of which fails the run (non-zero exit) on any error:
    in one process over the rotated blocks, one row's last 1100 keys masked
    (a whole shard of them), against fp32 plain attention over the whole
    sequence, the 4 hops' device time beside the serving kernel's on the
-   whole sequence.
+   whole sequence; (e) in the two processes of (b), an int8 TP 2 solve at
+   (b)'s geometry (the engine shards, then quantizes): the ranks' waves
+   bit-equal, mel and wave bit-equal to the mesh-free int8 engine's from the
+   same seeds, exact launches per forward per rank (22 x 6 quant_matmul,
+   44 row_amax, 44 rescale_rows, 22 + 22/0 + 1 serving kernels); (f) the
+   ring's backward at (d)'s shape in one process over the rotated blocks and
+   a shared set of traveling dK/dV accumulators: dq, dk, dv against fp32
+   autograd of plain attention over the whole sequence (relative L2), 4
+   kernel-3a and 8 kernel-3b launches per rank, one rank's backward body in a
+   CUDA graph beside kernel 3b over the whole sequence; (g) in the two
+   processes, one fp32 ``MMDiTConfig()`` forward (2 x 1024 frames + 256 text
+   tokens) at TP 2 against the mesh-free forward (relative L2), and one fp32
+   MMDiT AdamW step at TP 2 on a reduced 2 x 1024-frame batch against the
+   mesh-free step (loss, params, EMA), 2 conv-pos launches each (fp32: one
+   a layer) and no attention kernel (the joint attention is plain).
 19. the autoregressive leftovers (after the Parler phase, on its seeded
    full-width trees): (a) one ParlerTTSForConditionalGeneration-layout state
    dict written from those trees (the inverse key map
@@ -801,6 +822,106 @@ def quant_matmul_phase(dev) -> dict:
             "replaces": "f5tts_tpu/ops/pallas/quant_matmul.py:36", "max_abs_err": worst, **rows["qkvo"],
             "mma_sync_s8_top_s": mma_rate, "wgmma_s8_top_s": wgmma_rate,
             "other_shapes": {k: v for k, v in rows.items() if k != "qkvo"}}
+
+
+QUANT_TP_SHAPES = (("to_out", 4096, 512, 1024), ("ff_out", 4096, 1024, 1024))  # F5-TTS Base at TP 2, 2 x 1024 rows
+
+
+def quant_tp_phase(dev) -> tuple[dict, list[dict]]:
+    """Kernel 5 on the tensor-parallel serving path, at the row-parallel
+    linears' shapes of F5-TTS Base at TP 2 (``to_out`` K 512, ``ff.out`` K
+    1024; M 4096 = the 2 x 1024-row solve of phase 18 with CFG): the given
+    row abs-max and the raw int32 output on both paths (the plan takes the
+    streamed one at M 4096; the fused one forced) and at M 16384 on the fused
+    path, and the two companion kernels (``row_amax``, ``rescale_rows``), every
+    result bit-equal to its plain version; the K-shards' summed accumulators
+    rescaled equal the whole linear. Device time per call in a CUDA graph over
+    input sets larger than the L2, beside the plain versions, one PyTorch
+    call of the same function where there is one, and the bound. Returns the
+    raw mode's times (for kernel 5's line) and the companions' lines."""
+    from f5tts_tpu_torch.ops.kernels.quant_matmul import (kernel_layout, launch_plan, make_plan, plan, quant_matmul,
+                                                          quant_matmul_plain, rescale_rows, rescale_rows_plain,
+                                                          row_amax, row_amax_plain)
+
+    floors = dict(amax_floor=0.0, scale_floor=1e-8)
+    t0 = time.perf_counter()
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, m, k, n in (*QUANT_TP_SHAPES, ("to_out, M 16384", 16384, 512, 1024)):
+            x, w_q, s_w = _quant_inputs(dev, dtype, m, k, n, 330)
+            w_qt = kernel_layout(w_q)
+            amax = row_amax(x)
+            check(torch.equal(amax, row_amax_plain(x)), f"row_amax {name} {dtype} differs from its plain version")
+            big = amax * 1.25  # a K-shard's view: the whole row's abs-max is larger than its own
+            for streamed in (False, True):
+                p = make_plan(m, k, n, streamed, plan(m, k, n).split if streamed else 1)
+                raw = launch_plan(x, w_qt, s_w, None, p, **floors, amax=big, raw=True)
+                torch.cuda.synchronize()
+                check(torch.equal(raw, quant_matmul_plain(x, w_q, s_w, amax=big, raw=True, **floors)),
+                      f"quant_matmul raw {name} {dtype} {'streamed' if streamed else 'fused'} differs from plain")
+            halves = [quant_matmul(x[:, i:i + k // 2].contiguous(), w_q[i:i + k // 2].contiguous(), s_w,
+                                   w_qt=kernel_layout(w_q[i:i + k // 2]), amax=amax, raw=True, **floors)
+                      for i in (0, k // 2)]
+            b = torch.randn((n,), generator=torch.Generator().manual_seed(331)).to(dev, dtype)
+            y = rescale_rows(halves[0] + halves[1], amax, s_w, b=b, dtype=dtype, **floors)
+            torch.cuda.synchronize()
+            check(torch.equal(y, rescale_rows_plain(halves[0] + halves[1], amax, s_w, b=b, dtype=dtype, **floors)),
+                  f"rescale_rows {name} {dtype} differs from its plain version")
+            check(torch.equal(y, quant_matmul(x, w_q, s_w, w_qt=w_qt, b=b, **floors)),
+                  f"{name} {dtype}: two K-halves summed and rescaled differ from the whole linear")
+            del x, w_q, s_w, w_qt, amax, big, raw, halves, b, y
+    log(f"quant_matmul given abs-max + raw int32 (both paths), row_amax, rescale_rows at {QUANT_TP_SHAPES} and M "
+        f"16384, bf16 and fp32: all bit-equal to their plain versions; two K-halves summed and rescaled equal the "
+        f"whole linear ({time.perf_counter() - t0:.1f} s)")
+
+    tp_modes, lines = {}, {"row_amax": {}, "rescale_rows": {}}
+    for name, m, k, n in QUANT_TP_SHAPES:
+        sets = _quant_sets(dev, m, k, n, 340)
+        reps = max(1, -(-24 // len(sets)))
+        amaxes = [row_amax(s_[0]) for s_ in sets]
+        accs = [quant_matmul(s_[0], s_[1], s_[2], w_qt=s_[3], amax=a_, raw=True, **floors)
+                for s_, a_ in zip(sets, amaxes)]
+        raw_ms = time_graph_ms([lambda s_=s_, a_=a_: quant_matmul(s_[0], s_[1], s_[2], w_qt=s_[3], amax=a_, raw=True,
+                                                                  **floors) for s_, a_ in zip(sets, amaxes)] * reps)
+        whole_ms = time_graph_ms([lambda s_=s_: quant_matmul(s_[0], s_[1], s_[2], w_qt=s_[3], b=s_[4], **floors)
+                                  for s_ in sets] * reps)
+        bytes_raw = m * k * 2 + k * n + m * 4 + m * n * 4
+        bms_raw, by_raw = bound_ms(2.0 * m * k * n, bytes_raw, PEAK_INT8_OPS)
+        tp_modes[name] = {"raw_ms": raw_ms, "scaled_ms": whole_ms, "bound_ms": bms_raw, "bound_by": by_raw,
+                          "plan": "streamed" if plan(m, k, n).streamed else "fused"}
+        log(f"quant_matmul TP 2 {name} ({m}, {k}) x ({k}, {n}) bf16, plan {tp_modes[name]['plan']}: graph, given "
+            f"abs-max + raw int32 out {raw_ms:.4f} ms against the rescaled bf16 out with bias {whole_ms:.4f} ms; bound "
+            f"{bms_raw:.4f} ms ({by_raw})")
+        x0 = sets[0][0]
+        ms = time_graph_ms([lambda s_=s_: row_amax(s_[0]) for s_ in sets] * reps)
+        lib = time_graph_ms([lambda s_=s_: torch.linalg.vector_norm(s_[0], float("inf"), dim=-1, dtype=torch.float32)
+                             for s_ in sets] * reps)
+        bms, by = bound_ms(m * k, m * k * 2 + m * 4, PEAK_BF16_FLOPS)
+        lines["row_amax"][name] = {"ms": ms, "plain_ms": time_ms(lambda: row_amax_plain(x0)), "library_ms": lib,
+                                   "bound_ms": bms, "bound_by": by}
+        a0, acc0, s0 = amaxes[0], accs[0], sets[0]
+        ms = time_graph_ms([lambda s_=s_, a_=a_, c_=c_: rescale_rows(c_, a_, s_[2], b=s_[4], dtype=torch.bfloat16,
+                                                                     **floors)
+                            for s_, a_, c_ in zip(sets, amaxes, accs)] * reps)
+        bms, by = bound_ms(3 * m * n, m * n * 4 + m * 4 + n * 4 + n * 2 + m * n * 2, PEAK_BF16_FLOPS)
+        lines["rescale_rows"][name] = {"ms": ms, "plain_ms": time_ms(lambda: rescale_rows_plain(
+            acc0, a0, s0[2], b=s0[4], dtype=torch.bfloat16, **floors)), "library_ms": None, "bound_ms": bms,
+            "bound_by": by}
+        for kname in ("row_amax", "rescale_rows"):
+            r = lines[kname][name]
+            lib_txt = "none (no one PyTorch call)" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+            log(f"{kname} TP 2 {name} (M {m}, {'K ' + str(k) if kname == 'row_amax' else 'N ' + str(n)}, bf16): graph "
+                f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms (eager), library {lib_txt}, bound {r['bound_ms']:.4f} "
+                f"ms ({r['bound_by']}) = {100 * r['bound_ms'] / r['ms']:.1f}% of the kernel's time")
+        del sets, amaxes, accs
+        torch.cuda.empty_cache()
+    first = QUANT_TP_SHAPES[1][0]  # ff.out, the larger of the two: the line's numbers; the other under other_shapes
+    out = []
+    for kname, line, src in (("row_amax", "f5tts_tpu/ops/pallas/quant_matmul.py:25", "row_amax_kernel"),
+                             ("rescale_rows", "f5tts_tpu/ops/pallas/quant_matmul.py:31", "rescale_rows_kernel")):
+        out.append({"name": kname, "route": "cuda", "source": "f5tts_tpu_torch/csrc/quant_matmul.cu", "replaces": line,
+                    "max_abs_err": 0.0, **lines[kname][first], "kernel": src,
+                    "other_shapes": {k_: v_ for k_, v_ in lines[kname].items() if k_ != first}})
+    return tp_modes, out
 
 
 def ablate_attention_phase(dev) -> dict:
@@ -3220,7 +3341,10 @@ PAR_TRAIN_BATCH = (4, 1024)  # (c): rows x frames of the reduced train batch
 PAR_TRAIN_LR, PAR_TRAIN_CLIP = 1e-4, 1e-2
 PAR_LOSS_RTOL = 1e-5  # (c): loss of a sharded step vs the mesh-free step, fp32
 PAR_PARAM_ATOL = 1e-2 * PAR_TRAIN_LR  # (c): AdamW's g / (|g| + eps) magnifies gradient rounding near eps
-PAR_RING = (2, 16, 4096, 64, 4)  # (d): b, h, n, d, p
+PAR_RING = (2, 16, 4096, 64, 4)  # (d), (f): b, h, n, d, p
+PAR_RING_GRAD_REL = 3e-2  # (f): bf16 ring backward (p, dS and each hop's dq/dk/dv rounded to bf16) vs fp32 autograd
+PAR_MMDIT_REL = 1e-4  # (g): fp32 MMDiT forward at TP 2 vs mesh-free, relative L2 (the DiT's PAR_FWD_REL)
+PAR_MMDIT_TRAIN_BATCH = (2, 1024)  # (g): rows x frames of the MMDiT step's reduced batch
 
 
 def _free_port() -> int:
@@ -3239,12 +3363,13 @@ def _par_solve_inputs(dev, batch: int, n: int = 1024, ref_frames: int = 128, tex
             torch.full((batch,), n, dtype=torch.int32, device=dev), np.arange(batch))
 
 
-def _par_engine(dit_cfg, voc_cfg, dit_np, voc_np, tok, dev, batch: int, mesh=None, dtype: str = "bfloat16"):
+def _par_engine(dit_cfg, voc_cfg, dit_np, voc_np, tok, dev, batch: int, mesh=None, dtype: str = "bfloat16",
+                quantization: str = "none"):
     from f5tts_tpu_torch.engine.engine import EngineConfig, TTSEngine
 
     return TTSEngine(dit_np, dit_cfg, voc_np, tok, EngineConfig(
-        vocoder=voc_cfg, duration_buckets=(1024,), batch_buckets=(batch,), text_pad=512, compute_dtype=dtype),
-        device=dev, mesh=mesh)
+        vocoder=voc_cfg, duration_buckets=(1024,), batch_buckets=(batch,), text_pad=512, compute_dtype=dtype,
+        quantization=quantization), device=dev, mesh=mesh)
 
 
 def _par_solve(engine, inputs, nfe: int):
@@ -3267,6 +3392,35 @@ def _serving_wrappers() -> dict:
     from f5tts_tpu_torch.ops.kernels.flash_attention import flash_attention, rope_rows
 
     return {"flash_attention": flash_attention, "rope_rows": rope_rows, "conv_pos": conv_pos}
+
+
+def _int8_tp_wrappers() -> dict:
+    from f5tts_tpu_torch.ops.kernels.quant_matmul import quant_matmul, rescale_rows, row_amax
+
+    return {**_serving_wrappers(), "quant_matmul": quant_matmul, "row_amax": row_amax, "rescale_rows": rescale_rows}
+
+
+def _int8_tp_want(rank: int, forwards: int, model_parallel: int) -> dict:
+    """Launches of an int8 solve per rank: per DiT forward 22 x 6 quant_matmul
+    (one a linear), 22 x 2 row_amax and rescale_rows (the row-parallel
+    to_out and ff.out, under TP only), 22 attention, 22 RoPE pre-passes on
+    model rank 0, 1 conv-pos pair."""
+    tp = model_parallel > 1
+    return {"flash_attention": 22 * forwards, "rope_rows": (22 if rank == 0 else 0) * forwards,
+            "conv_pos": forwards, "quant_matmul": 22 * QUANTIZED_LINEARS * forwards,
+            "row_amax": (44 if tp else 0) * forwards, "rescale_rows": (44 if tp else 0) * forwards}
+
+
+def _par_mmdit_inputs(dev, vocab: int):
+    """(g)'s forward inputs: 2 x 1024 frames + 256 text tokens (one row's
+    text padded from 200), one row's frames valid to 800, one row's drops."""
+    rng = np.random.default_rng(5)
+    x, cond = (torch.as_tensor(rng.standard_normal((2, 1024, 100)), dtype=torch.float32, device=dev) for _ in range(2))
+    text = torch.as_tensor(rng.integers(0, vocab, (2, 256)), dtype=torch.int32, device=dev)
+    text[1, 200:] = -1
+    drop = torch.tensor([False, True], device=dev)
+    mask = torch.arange(1024, device=dev)[None, :] < torch.tensor([[1024], [800]], device=dev)
+    return x, cond, text, torch.tensor([0.3, 0.8], device=dev), drop, drop, mask
 
 
 def _train_wrappers() -> dict:
@@ -3334,6 +3488,20 @@ def _par_worker(rank: int, world: int, out_dir: str) -> None:
     del p32
     torch.cuda.empty_cache()
 
+    # (e) the int8 TP solve (sharded, then quantized) with its launch counts
+    engine = _par_engine(dit_cfg, voc_cfg, dit_np, voc_np, tok, dev, PAR_SOLVE_BATCH, mesh=tp_mesh,
+                         quantization="int8")
+    _par_solve(engine, inputs, 2)  # warm up
+    wrappers = _int8_tp_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    mel, wave = _par_solve(engine, inputs, PAR_SOLVE_NFE)
+    out["int8"] = {"s": time.perf_counter() - t0, "launches": {k: w.launches for k, w in wrappers.items()},
+                   "mel": mel.cpu().numpy(), "wave": wave.cpu().numpy()}
+    del engine, mel, wave
+    torch.cuda.empty_cache()
+
     # (c) one fp32 Base step per case; rank 0 holds each against the mesh-free step
     rows, frames = PAR_TRAIN_BATCH
     batch = synthetic_packed_batch(dit_cfg, frames, rows, seed=7)
@@ -3373,10 +3541,68 @@ def _par_worker(rank: int, world: int, out_dir: str) -> None:
         out[case] = res
         del whole
         torch.cuda.empty_cache()
+    del refs
+
+    # (g) the MMDiT at full width under TP 2: one fp32 forward, one fp32 step on a reduced batch
+    out["mmdit"] = _par_mmdit_worker(rank, dev, tp_mesh, tok)
     with open(os.path.join(out_dir, f"par_{rank}.pkl"), "wb") as fh:
         import pickle
 
         pickle.dump(out, fh)
+
+
+def _par_mmdit_worker(rank: int, dev, tp_mesh, tok) -> dict:
+    """(g) on one rank of the spawn: the forward's output, launches, and the
+    step's metrics; rank 0 also runs the mesh-free step and compares."""
+    from f5tts_tpu_torch.models.convert import init_mmdit_numpy, mmdit_params_from_numpy
+    from f5tts_tpu_torch.models.mmdit import MMDiTConfig, mmdit_forward
+    from f5tts_tpu_torch.parallel.sharding import shard_params, unshard_params
+    from f5tts_tpu_torch.train.data import synthetic_packed_batch
+    from f5tts_tpu_torch.train.trainer import Trainer, init_train_state
+    from f5tts_tpu_torch.train.tree import tree_leaves
+
+    mcfg = MMDiTConfig(text_num_embeds=tok.vocab_size)
+    m_np = init_mmdit_numpy(mcfg, seed=0)
+    wrappers = {**_serving_wrappers(), **_train_wrappers()}
+    res = {}
+    with torch.no_grad():
+        params = shard_params(mmdit_params_from_numpy(m_np, dev, torch.float32), tp_mesh)
+        for w in wrappers.values():
+            w.launches = 0
+        y = mmdit_forward(params, mcfg, *_par_mmdit_inputs(dev, tok.vocab_size), tp=tp_mesh["model"])
+        torch.cuda.synchronize()
+        res["fwd_launches"] = {k: w.launches for k, w in wrappers.items()}
+        res["fwd"] = y.cpu().numpy()
+    del params, y
+    torch.cuda.empty_cache()
+    rows, frames = PAR_MMDIT_TRAIN_BATCH
+    batch = synthetic_packed_batch(mcfg, frames, rows, seed=9)
+    model_cfg, train_cfg = _par_train_cfgs(mcfg, "adamw")
+    trainer = Trainer(model_cfg, train_cfg, compute_dtype=torch.float32, mesh=tp_mesh)
+    state = trainer.shard(init_train_state(model_cfg, train_cfg, dev, m_np))
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res["metrics"] = {k: float(v) for k, v in trainer.step(state, batch).items()}
+    torch.cuda.synchronize()
+    res["s"], res["launches"] = time.perf_counter() - t0, {k: w.launches for k, w in wrappers.items()}
+    whole = {k: unshard_params(state[k], tp_mesh) for k in ("params", "ema")}
+    del state, trainer
+    torch.cuda.empty_cache()
+    if rank == 0:
+        ref_trainer = Trainer(model_cfg, train_cfg, compute_dtype=torch.float32, device=dev)
+        ref_state = init_train_state(model_cfg, train_cfg, dev, m_np)
+        res["ref_metrics"] = {k: float(v) for k, v in ref_trainer.step(ref_state, batch).items()}
+        worst = {}
+        for part in ("params", "ema"):
+            for (_, a), (_, b) in zip(tree_leaves(whole[part]), tree_leaves(ref_state[part])):
+                worst[part] = max(worst.get(part, 0.0), float((a.detach() - b.detach()).abs().max()))
+        res["max_abs_diff"] = worst
+        del ref_state, ref_trainer
+    del whole
+    torch.cuda.empty_cache()
+    return res
 
 
 def _par_local_checks(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card: str, launches: dict) -> dict:
@@ -3416,10 +3642,34 @@ def _par_local_checks(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card: str, lau
         dist.destroy_process_group()
     torch.cuda.empty_cache()
 
-    # the mesh-free references of (b): the bf16 solve at (b)'s geometry, one fp32 forward
+    # the mesh-free references of (b), (e) and (g): the bf16 and the int8 solve at (b)'s geometry, one fp32 DiT
+    # and one fp32 MMDiT forward
     free = _par_engine(dit_cfg, voc_cfg, dit_np, voc_np, tok, dev, PAR_SOLVE_BATCH)
     ref_mel, _ = _par_solve(free, _par_solve_inputs(dev, PAR_SOLVE_BATCH), PAR_SOLVE_NFE)
     del free
+    free = _par_engine(dit_cfg, voc_cfg, dit_np, voc_np, tok, dev, PAR_SOLVE_BATCH, quantization="int8")
+    _par_solve(free, _par_solve_inputs(dev, PAR_SOLVE_BATCH), 2)  # warm up
+    wrappers = _int8_tp_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    ref_mel8, ref_wave8 = _par_solve(free, _par_solve_inputs(dev, PAR_SOLVE_BATCH), PAR_SOLVE_NFE)
+    got = {k: w.launches for k, w in wrappers.items()}
+    want = _int8_tp_want(0, _par_forwards(PAR_SOLVE_NFE), 1)
+    log(f"(e) mesh-free int8 reference solve ({PAR_SOLVE_BATCH} x 1024, ralston NFE {PAR_SOLVE_NFE}, CFG 2, bf16): "
+        f"launches {got} (want {want})")
+    check(got == want, f"(e) mesh-free int8 launches {got}, want {want}")
+    for k, c in got.items():
+        launches.setdefault(k, {})["parallel_int8_mesh_free"] = c
+    del free
+    from f5tts_tpu_torch.models.convert import init_mmdit_numpy, mmdit_params_from_numpy
+    from f5tts_tpu_torch.models.mmdit import MMDiTConfig, mmdit_forward
+
+    mcfg = MMDiTConfig(text_num_embeds=tok.vocab_size)
+    with torch.no_grad():
+        pm = mmdit_params_from_numpy(init_mmdit_numpy(mcfg, seed=0), dev, torch.float32)
+        mm32 = mmdit_forward(pm, mcfg, *_par_mmdit_inputs(dev, tok.vocab_size)).cpu().numpy()
+    del pm
+    torch.cuda.empty_cache()
     rng = np.random.default_rng(5)
     x = torch.as_tensor(rng.standard_normal((2, 1024, 100)), dtype=torch.float32, device=dev)
     text = torch.as_tensor(rng.integers(0, 90, (2, 256)), dtype=torch.int32, device=dev)
@@ -3429,7 +3679,8 @@ def _par_local_checks(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card: str, lau
         fwd32 = dit_forward(p32, dit_cfg, x, x, text, t, f, f)
     del p32
     torch.cuda.empty_cache()
-    return {"mel": ref_mel, "fwd32": fwd32}
+    return {"mel": ref_mel, "fwd32": fwd32.cpu().numpy(), "mel8": ref_mel8.cpu().numpy(),
+            "wave8": ref_wave8.cpu().numpy(), "mmdit32": mm32}
 
 
 def _par_ring_check(dev, card: str, launches: dict) -> None:
@@ -3437,7 +3688,7 @@ def _par_ring_check(dev, card: str, launches: dict) -> None:
     from f5tts_tpu_torch.ops.attention import sdpa
     from f5tts_tpu_torch.ops.kernels.flash_attention import flash_attention
     from f5tts_tpu_torch.ops.kernels.flash_attention_train import flash_attention_train_fwd
-    from f5tts_tpu_torch.parallel.ring_attention import local_transport, ring_body, seq_blocks
+    from f5tts_tpu_torch.parallel.ring_attention import LocalTransport, ring_body, seq_blocks
 
     b, h, n, d, p = PAR_RING
     g = torch.Generator(device=dev).manual_seed(11)
@@ -3448,7 +3699,7 @@ def _par_ring_check(dev, card: str, launches: dict) -> None:
     blocks = list(zip(kb, vb, mb))
 
     def ring(r):
-        return ring_body(qb[r], kb[r], vb[r], mb[r], p, local_transport(blocks, r))
+        return ring_body(qb[r], kb[r], vb[r], mb[r], p, LocalTransport(blocks, r))
 
     flash_attention_train_fwd.launches = 0
     o = torch.cat([ring(r) for r in range(p)], 2)
@@ -3481,6 +3732,77 @@ def _par_ring_check(dev, card: str, launches: dict) -> None:
         f"the whole sequence's {flops / 1e9:.1f} GFLOP, one rank a quarter (bound, operations: "
         f"{bound_ms(flops / p, 0, PEAK_BF16_FLOPS)[0]:.4f} ms a rank, {bound_ms(flops, 0, PEAK_BF16_FLOPS)[0]:.4f} ms "
         f"the whole)")
+
+
+def _par_ring_backward_check(dev, card: str, launches: dict) -> None:
+    """(f) the ring's backward at p 4 in one process over the rotated blocks:
+    every rank's forward (kernel 3a per hop), then its backward (kernel 3b per
+    hop) with one shared set of traveling dK/dV accumulators; dq, dk, dv
+    against fp32 autograd of plain attention over the whole sequence."""
+    from f5tts_tpu_torch.ops.attention import sdpa
+    from f5tts_tpu_torch.ops.kernels.flash_attention_train import flash_attention_train_bwd, flash_attention_train_fwd
+    from f5tts_tpu_torch.parallel.ring_attention import LocalTransport, ring_body_bwd, ring_forward, seq_blocks
+
+    b, h, n, d, p = PAR_RING
+    g = torch.Generator(device=dev).manual_seed(12)
+    q, k, v, do = (torch.randn((b, h, n, d), generator=g, device=dev).to(torch.bfloat16) for _ in range(4))
+    masked = n // p + 76  # row 1: the last shard's keys all masked, and 76 of the one before (1100 at n 4096)
+    mask = torch.ones((b, n), dtype=torch.bool, device=dev)
+    mask[1, n - masked:] = False
+    qb, kb, vb, dob = (seq_blocks(t, p, 2) for t in (q, k, v, do))
+    mb = seq_blocks(mask, p, 1)
+    blocks, shared = list(zip(kb, vb, mb)), {}
+    fwd, bwd = flash_attention_train_fwd, flash_attention_train_bwd
+    grads, per_rank, fwd_out = [], [], []
+    for r in range(p):
+        fwd.launches = bwd.launches = 0
+        o, lse = ring_forward(qb[r], kb[r], vb[r], mb[r], p, LocalTransport(blocks, r))
+        grads.append(ring_body_bwd(qb[r], kb[r], vb[r], mb[r], o, lse, dob[r], p,
+                                   LocalTransport(blocks, r, shared)))
+        torch.cuda.synchronize()
+        per_rank.append((fwd.launches, bwd.launches))
+        fwd_out.append((o, lse))
+    launches["flash_attention_train_fwd"]["parallel_ring_bwd"] = sum(a for a, _ in per_rank)
+    launches["flash_attention_train_bwd"]["parallel_ring_bwd"] = sum(c for _, c in per_rank)
+    leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
+    (sdpa(*leaves, mask) * do.float()).sum().backward()
+    errs = {}
+    for i, (name, leaf) in enumerate(zip(("dq", "dk", "dv"), leaves)):
+        got = torch.cat([gr[i] for gr in grads], 2)
+        errs[name] = _rel_l2(got, leaf.grad)
+    dead = float(torch.cat([gr[1] for gr in grads], 2)[1, :, n - masked:].abs().max())
+    log(f"(f) ring backward p {p}, n {n}, b {b}, {h} x {d} bf16, row 1's last {masked} keys masked, in one process "
+        f"over the rotated blocks: launches per rank (3a, 3b) {per_rank} (want (4, 8) each); relative L2 against fp32 "
+        f"autograd of plain attention over the whole sequence: dq {errs['dq']:.3e}, dk {errs['dk']:.3e}, dv "
+        f"{errs['dv']:.3e} (tol {PAR_RING_GRAD_REL}); masked keys' dk max |.| {dead:.1e} (want 0)")
+    check(all(c == (p, 2 * p) for c in per_rank), f"(f) launches per rank {per_rank}, want (4, 8)")
+    check(all(np.isfinite(e) and e < PAR_RING_GRAD_REL for e in errs.values()), f"(f) ring backward off: {errs}")
+    check(dead == 0.0, f"(f) masked keys got a dk of {dead}")
+    del leaves, grads
+
+    o0, lse0 = fwd_out[0]
+    o_all, lse_all = fwd(q, k, v, mask)
+
+    def body(r=0):
+        return ring_body_bwd(qb[r], kb[r], vb[r], mb[r], o0, lse0, dob[r], p, LocalTransport(blocks, r, {}))
+
+    masks = [m_.contiguous() for m_ in mb]
+
+    def hops_only(r=0):
+        return [bwd(qb[r], kb[(r - i) % p], vb[(r - i) % p], o0, lse0, dob[r], masks[(r - i) % p]) for i in range(p)]
+
+    def whole():
+        return bwd(q, k, v, o_all, lse_all, do, mask)
+
+    graph = [time_graph_ms([fn]) for fn in (body, hops_only, whole)]
+    flops = 10 * b * h * n * n * d  # five products of n x n x d per head: QK^T again, dP, dV, dQ, dK
+    log(f"(f) device time on {card}, in a CUDA graph: one rank's backward body (4 hops of kernel 3b + fp32 "
+        f"accumulation) {graph[0]:.4f} ms, its 4 hop calls alone {graph[1]:.4f} ms, kernel 3b over the whole "
+        f"sequence {graph[2]:.4f} ms; bound (operations, {flops / 1e9:.1f} GFLOP the whole): "
+        f"{bound_ms(flops / p, 0, PEAK_BF16_FLOPS)[0]:.4f} ms a rank, {bound_ms(flops, 0, PEAK_BF16_FLOPS)[0]:.4f} "
+        f"ms the whole")
+    del fwd_out, o_all, lse_all
+    torch.cuda.empty_cache()
 
 
 def parallel_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card: str, launches: dict) -> None:
@@ -3518,7 +3840,7 @@ def parallel_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card: str, launch
     check(same, "(b) the ranks' waves differ")
     ref_mel = refs["mel"].cpu().numpy()
     mel_rel = float(np.linalg.norm(outs[0]["mel"] - ref_mel) / np.linalg.norm(ref_mel))
-    fwd_ref = refs["fwd32"].cpu().numpy()
+    fwd_ref = refs["fwd32"]
     fwd_rel = float(np.linalg.norm(outs[0]["fwd32"] - fwd_ref) / np.linalg.norm(fwd_ref))
     log(f"(b) fp32 Base forward (2 x 1024) TP 2 vs mesh-free: relative L2 {fwd_rel:.3e} (tol {PAR_FWD_REL}); "
         f"bf16 solve's mel vs mesh-free bf16: relative L2 {mel_rel:.3e} (tol {PAR_TP_MEL_REL})")
@@ -3549,8 +3871,60 @@ def parallel_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card: str, launch
         check(worst["params"] < PAR_PARAM_ATOL and worst["ema"] < PAR_PARAM_ATOL, f"(c) {case}: state off {worst}")
         check(worst.get("key_bias", 0.0) < key_tol, f"(c) {case}: key bias off {worst}")
 
+    # (e) the int8 TP solve: exact launches, the ranks equal, equal to the mesh-free int8 engine
+    for r, o in enumerate(outs):
+        c = o["int8"]
+        want = _int8_tp_want(r, forwards, 2)
+        log(f"(e) rank {r}: int8 TP 2 solve ({PAR_SOLVE_BATCH} x 1024, ralston NFE {PAR_SOLVE_NFE}, CFG 2, bf16, W8A8 "
+            f"sharded then quantized) {c['s']:.3f} s wall over gloo on {card} (a correctness run, not a speed); "
+            f"launches {c['launches']} (want {want}: per forward {QUANTIZED_LINEARS} x 22 quant_matmul, 44 row_amax, "
+            f"44 rescale_rows)")
+        check(c["launches"] == want, f"(e) rank {r} launches {c['launches']}, want {want}")
+        for k, n_l in c["launches"].items():
+            launches.setdefault(k, {})[f"parallel_int8_tp_rank{r}"] = n_l
+    same = (np.array_equal(outs[0]["int8"]["wave"], outs[1]["int8"]["wave"])
+            and np.array_equal(outs[0]["int8"]["mel"], outs[1]["int8"]["mel"]))
+    mel8, wave8 = outs[0]["int8"]["mel"], outs[0]["int8"]["wave"]
+    free_same = np.array_equal(mel8, refs["mel8"]) and np.array_equal(wave8, refs["wave8"])
+    rel8 = float(np.linalg.norm(mel8 - refs["mel8"]) / np.linalg.norm(refs["mel8"]))
+    log(f"(e) the two ranks' int8 waves and mels bit-equal: {same}; int8 TP 2 mel and wave against the mesh-free int8 "
+        f"engine from the same seeds bit-equal: {free_same} (mel relative L2 {rel8:.3e}); finite "
+        f"{bool(np.isfinite(wave8).all())}")
+    check(same, "(e) the ranks' int8 waves differ")
+    check(free_same, f"(e) the int8 TP solve differs from the mesh-free int8 solve (mel relative L2 {rel8})")
+
+    # (g) the MMDiT at TP 2: the fp32 forward against the mesh-free one, the step against the mesh-free step
+    # fp32: the conv-pos pair is two launches (conv_generic_kernel per layer); the joint attention is plain
+    want_fwd = {"flash_attention": 0, "rope_rows": 0, "conv_pos": 2, "flash_attention_train_fwd": 0,
+                "flash_attention_train_bwd": 0}
+    for r, o in enumerate(outs):
+        g = o["mmdit"]
+        log(f"(g) rank {r}: MMDiT TP 2 forward launches {g['fwd_launches']} (want {want_fwd}), step {g['s']:.3f} s "
+            f"(gloo), loss {g['metrics']['loss']:.6f}, launches {g['launches']} (want {want_fwd})")
+        check(g["fwd_launches"] == want_fwd and g["launches"] == want_fwd, f"(g) rank {r} MMDiT launches")
+        for k, n_l in g["launches"].items():
+            launches.setdefault(k, {})[f"parallel_mmdit_step_rank{r}"] = n_l
+        for k, n_l in g["fwd_launches"].items():
+            launches.setdefault(k, {})[f"parallel_mmdit_fwd_rank{r}"] = n_l
+    mm_ref = refs["mmdit32"]
+    mm_rel = [float(np.linalg.norm(o["mmdit"]["fwd"] - mm_ref) / np.linalg.norm(mm_ref)) for o in outs]
+    g = outs[0]["mmdit"]
+    ref = g["ref_metrics"]
+    loss_rel = abs(g["metrics"]["loss"] - ref["loss"]) / abs(ref["loss"])
+    worst = g["max_abs_diff"]
+    log(f"(g) MMDiTConfig() (dim 1024, depth 22, 16 x 64) fp32 forward (2 x 1024 frames + 256 text tokens) at TP 2 "
+        f"vs mesh-free: relative L2 {mm_rel[0]:.3e} / {mm_rel[1]:.3e} (ranks 0 / 1; tol {PAR_MMDIT_REL}); fp32 step "
+        f"({PAR_MMDIT_TRAIN_BATCH[0]} x {PAR_MMDIT_TRAIN_BATCH[1]} frames, reduced batch) vs the mesh-free step: loss "
+        f"{g['metrics']['loss']:.6f} vs {ref['loss']:.6f} (rel {loss_rel:.2e}, tol {PAR_LOSS_RTOL}), grad norm "
+        f"{ref['grad_norm']:.4f} (clip {PAR_TRAIN_CLIP}); max abs diff params {worst['params']:.3e}, EMA "
+        f"{worst['ema']:.3e} (tol {PAR_PARAM_ATOL:.1e})")
+    check(all(np.isfinite(e) and e < PAR_MMDIT_REL for e in mm_rel), f"(g) MMDiT TP forward off by {mm_rel}")
+    check(loss_rel < PAR_LOSS_RTOL, f"(g) MMDiT step loss off by {loss_rel}")
+    check(worst["params"] < PAR_PARAM_ATOL and worst["ema"] < PAR_PARAM_ATOL, f"(g) MMDiT step state off {worst}")
+
     _par_ring_check(dev, card, launches)
-    log(f"phase 18 (multi-device) took {time.perf_counter() - t_phase:.1f} s")
+    _par_ring_backward_check(dev, card, launches)
+    log(f"phase 18 (multi-device) took {time.perf_counter() - t_phase:.1f} s on {card}")
 
 
 def main():
@@ -3618,7 +3992,9 @@ def main():
         log(f"launches {launches}")
         return
     kernels = [attention_phase(dev), conv_phase(dev), *train_kernel_phase(dev), decode_attention_phase(dev),
-               quant_matmul_phase(dev), ablate_attention_phase(dev)]
+               quant_matmul_phase(dev)]
+    kernels[-1]["tp_modes"], companions = quant_tp_phase(dev)  # kernel 5's row-parallel modes and companions
+    kernels += [*companions, ablate_attention_phase(dev)]
     launches = {k["name"]: {} for k in kernels}  # kernel -> path -> launches, each path's counts set to 0 before it
     launches["rope_rows"] = {}  # the serving attention's RoPE pre-pass, counted apart from its main kernel
     launches["ablate_attention"]["ablation"] = kernels[-1].pop("ablation_launches")
@@ -3658,7 +4034,7 @@ def main():
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
         "bound_by", "library_ms", "launches_by_path",
         *(key for key in ("eager_ms", "int_mm_ms", "bf16_matmul_ms", "mma_sync_s8_top_s", "wgmma_s8_top_s",
-                          "graph_ms", "variants_ms", "other_shapes",
+                          "graph_ms", "variants_ms", "other_shapes", "tp_modes", "kernel",
                           "layouts_ms", "ablation_rows", "rope_rows_launches",
                           "rope_rows_launches_by_path") if key in k))}
         for k in kernels]}))

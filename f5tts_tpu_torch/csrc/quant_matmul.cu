@@ -62,6 +62,17 @@
 // - Any M (rows past M are zeros and never written), K and N multiples of 16
 //   (K is zero-padded to the 128-byte panel, columns past N are zero weights
 //   and never written), K up to MAX_K (int32 accumulators stay exact).
+// - Tensor parallelism (a row-parallel linear: K sharded over ranks). The row
+//   abs-max must span the whole row and the products the whole K, so the
+//   kernel takes two options: a given per-row abs-max `amax` (M,) fp32 (the
+//   ranks' local maxima all-reduced with MAX; the quantize phase and the
+//   pre-pass then skip their reduction), and a raw mode (RAW) whose epilogue
+//   stores the int32 accumulators (M, N) with no rescale and no bias, to be
+//   summed over the ranks exactly. Two companions close the path:
+//   row_amax_kernel (the local abs-max, one warp a row) and
+//   rescale_rows_kernel (the summed accumulators rescaled as above, the bias
+//   added after the rounding to x's type). Integer sums are exact, so a sharded
+//   linear equals the one-device one bit for bit.
 // The plan (path, N split) is chosen by the wrapper's pure Python `plan`
 // (ops/kernels/quant_matmul.py) from (M, K, N, SM count).
 // A barrier wait that outlasts 4 s traps: a lost arrival fails the launch
@@ -70,6 +81,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -149,9 +162,9 @@ __device__ __forceinline__ float warp_max(float x) {
     return x;
 }
 
-// sx of one row (the whole warp: lane-strided 8-element loads, K % 8 == 0).
+// max |x| of one row (the whole warp: lane-strided 8-element loads, K % 8 == 0).
 template <typename T>
-__device__ __forceinline__ float row_scale(const T* xr, int k, int lane, float amax_floor, float scale_floor) {
+__device__ __forceinline__ float row_absmax(const T* xr, int k, int lane) {
     float amax = 0.0f;
 #pragma unroll 4
     for (int c = lane * 8; c < k; c += 32 * 8) {
@@ -160,8 +173,7 @@ __device__ __forceinline__ float row_scale(const T* xr, int k, int lane, float a
 #pragma unroll
         for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(v[e]));
     }
-    amax = warp_max(amax);
-    return fmaxf(__fdiv_rn(fmaxf(amax, amax_floor), 127.0f), scale_floor);
+    return warp_max(amax);
 }
 
 // rint(v / sx), half to even, of the correctly rounded quotient, for 16 values, packed as int8, with
@@ -255,12 +267,21 @@ __device__ __forceinline__ void put2(unsigned char* p, bf16, float a, float b) {
 __device__ __forceinline__ void put2(unsigned char* p, float, float a, float b) {
     *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
+__device__ __forceinline__ void put2(unsigned char* p, int a, int b) {
+    *reinterpret_cast<int2*>(p) = make_int2(a, b);
+}
+
+// sx from a row's abs-max: max(max(amax, amax_floor) / 127, scale_floor), a true division.
+__device__ __forceinline__ float scale_of(float amax, float amax_floor, float scale_floor) {
+    return fmaxf(__fdiv_rn(fmaxf(amax, amax_floor), 127.0f), scale_floor);
+}
 
 struct Params {
     const void* x;     // (m, k), T: the fused path's activations
     const float* sx;   // (m,): the streamed path's row scales (the pre-pass's)
     const float* s_w;  // (n,)
     const void* bias;  // (n,), T, or null
+    const float* amax;  // (m,): a given per-row abs-max (the quantize phase skips its reduction), or null
     int m, k, n;
     int n_tiles, per;  // N tiles of BN; tiles per block (blockIdx.y owns tiles per*y ..)
     int stages;        // ring stages (Cfg::stages)
@@ -305,17 +326,21 @@ __device__ __forceinline__ void quantize_rows(const Params& p, unsigned char* As
         wait_or_trap(&xbar[warp * nslot + i], (q / nslot) & 1);
         const uint4* row = reinterpret_cast<const uint4*>(xbuf + (size_t)(warp * nslot + i) * row_bytes);
         float amax = 0.0f;
-        for (int c = lane; c * 16 < p.k; c += 32) {
-            uint4 u[WORDS];
+        if (p.amax != nullptr) {
+            amax = __ldg(p.amax + m0 + r);
+        } else {
+            for (int c = lane; c * 16 < p.k; c += 32) {
+                uint4 u[WORDS];
 #pragma unroll
-            for (int w = 0; w < WORDS; ++w) u[w] = row[c * WORDS + w];
-            float v[16];
-            Chunk<T>::to_float(u, v);
+                for (int w = 0; w < WORDS; ++w) u[w] = row[c * WORDS + w];
+                float v[16];
+                Chunk<T>::to_float(u, v);
 #pragma unroll
-            for (int e = 0; e < 16; ++e) amax = fmaxf(amax, fabsf(v[e]));
+                for (int e = 0; e < 16; ++e) amax = fmaxf(amax, fabsf(v[e]));
+            }
+            amax = warp_max(amax);
         }
-        amax = warp_max(amax);
-        const float sx = fmaxf(__fdiv_rn(fmaxf(amax, p.amax_floor), 127.0f), p.scale_floor);
+        const float sx = scale_of(amax, p.amax_floor, p.scale_floor);
         const float rcp = __fdiv_rn(1.0f, sx);
         if (lane == 0) sx_s[r] = sx;
         for (int c = lane; c < chunks; c += 32) {
@@ -341,13 +366,14 @@ __device__ __forceinline__ void quantize_rows(const Params& p, unsigned char* As
 
 // Grid (row blocks, ceil(n_tiles / per)), THREADS threads, Cfg::smem(k) bytes of dynamic shared memory.
 // wmap: w_qt (n, k) int8 in boxes of 128 k x BN rows; amap (STREAM): xq (m, k) in boxes of 128 k x BM
-// rows; omap: out (m, n) in boxes of 128 bytes x 8 rows.
-template <typename T, bool STREAM>
+// rows; omap: out (m, n) in boxes of 128 bytes x 8 rows. RAW: out is the int32 accumulators.
+template <typename T, bool STREAM, bool RAW>
 __global__ void __launch_bounds__(THREADS, 1)
 quant_matmul_kernel(const __grid_constant__ CUtensorMap wmap, const __grid_constant__ CUtensorMap amap,
                     const __grid_constant__ CUtensorMap omap, const Params p) {
     using C = Cfg<STREAM>;
-    constexpr int CW = 128 / (int)sizeof(T);   // output columns in a 128-byte staged row
+    using O = std::conditional_t<RAW, int, T>;  // the output's element
+    constexpr int CW = 128 / (int)sizeof(O);   // output columns in a 128-byte staged row
     constexpr int JC = CW / 8;                 // 8-column groups in it
 
     extern __shared__ unsigned char smem_raw[];
@@ -441,7 +467,7 @@ quant_matmul_kernel(const __grid_constant__ CUtensorMap wmap, const __grid_const
             if (t > 0) hp::named_sync(1 + pr, 512);
             const int n0 = (t0 + (t + rot) % ntl) * BN;
             float sw_t = 0.0f, b_t = 0.0f;  // this thread's column: loaded now, used after the products
-            if (n0 + ct < p.n) {
+            if (!RAW && n0 + ct < p.n) {
                 sw_t = __ldg(p.s_w + n0 + ct);
                 if (bias != nullptr) b_t = to_float(bias[n0 + ct]);
             }
@@ -470,11 +496,13 @@ quant_matmul_kernel(const __grid_constant__ CUtensorMap wmap, const __grid_const
 #pragma unroll
             for (int h = 0; h < 2; ++h) {  // rows rl + g: h 0 the warp's first 8, h 1 its last 8
                 const int rl = row0 + w * 16 + 8 * h;
-                float sxr;
-                if constexpr (STREAM)
-                    sxr = m0 + rl + g < p.m ? __ldg(p.sx + m0 + rl + g) : 0.0f;
-                else
-                    sxr = sx_s[rl + g];
+                float sxr = 0.0f;  // RAW: the accumulators leave unscaled
+                if constexpr (!RAW) {
+                    if constexpr (STREAM)
+                        sxr = m0 + rl + g < p.m ? __ldg(p.sx + m0 + rl + g) : 0.0f;
+                    else
+                        sxr = sx_s[rl + g];
+                }
 #pragma unroll
                 for (int c = 0; c < BN / CW; ++c) {
                     if (lane == 0) hp::bulk_wait_read<0>();  // the last piece has left the buffer
@@ -482,12 +510,16 @@ quant_matmul_kernel(const __grid_constant__ CUtensorMap wmap, const __grid_const
 #pragma unroll
                     for (int jj = 0; jj < JC; ++jj) {
                         const int j = c * JC + jj;
+                        const int bc = (8 * jj + 2 * tq) * (int)sizeof(O);  // byte column in the staged row
+                        unsigned char* dst = my_stg + g * 128 + ((((bc >> 4) ^ g) << 4) | (bc & 15));
+                        if constexpr (RAW) {
+                            put2(dst, (int)acc[4 * j + 2 * h], (int)acc[4 * j + 2 * h + 1]);
+                            continue;
+                        }
                         const float2 sw = *reinterpret_cast<const float2*>(my_cols + 8 * j + 2 * tq);
                         const float2 bb = *reinterpret_cast<const float2*>(my_cols + BN + 8 * j + 2 * tq);
                         const float v0 = __fmul_rn(__fmul_rn(__int2float_rn((int)acc[4 * j + 2 * h]), sxr), sw.x);
                         const float v1 = __fmul_rn(__fmul_rn(__int2float_rn((int)acc[4 * j + 2 * h + 1]), sxr), sw.y);
-                        const int bc = (8 * jj + 2 * tq) * (int)sizeof(T);  // byte column in the staged row
-                        unsigned char* dst = my_stg + g * 128 + ((((bc >> 4) ^ g) << 4) | (bc & 15));
                         if (bias != nullptr)
                             put2(dst, T{}, with_bias(T{}, v0, bb.x), with_bias(T{}, v1, bb.y));
                         else
@@ -506,15 +538,17 @@ quant_matmul_kernel(const __grid_constant__ CUtensorMap wmap, const __grid_const
     }
 }
 
-// The streamed path's pre-pass: xq (m, k) int8 and sx (m,) fp32, one warp a row.
+// The streamed path's pre-pass: xq (m, k) int8 and sx (m,) fp32, one warp a row; with a given abs-max
+// `amax` (m,) the row's reduction is skipped.
 template <typename T>
 __global__ void __launch_bounds__(QROWS * 32)
-quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ sx, int m, int k,
-                     float amax_floor, float scale_floor) {
+quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ sx,
+                     const float* __restrict__ amax, int m, int k, float amax_floor, float scale_floor) {
     const int row = blockIdx.x * QROWS + (threadIdx.x >> 5), lane = threadIdx.x & 31;
     if (row >= m) return;
     const T* xr = x + (size_t)row * k;
-    const float s = row_scale<T>(xr, k, lane, amax_floor, scale_floor);
+    const float a = amax != nullptr ? __ldg(amax + row) : row_absmax<T>(xr, k, lane);
+    const float s = scale_of(a, amax_floor, scale_floor);
     if (lane == 0) sx[row] = s;
     const float rcp = __fdiv_rn(1.0f, s);
     int8_t* qr = xq + (size_t)row * k;
@@ -524,6 +558,43 @@ quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ xq, float* __
         Row8<T>::load(xr + c + 8, v + 8);
         *reinterpret_cast<uint4*>(qr + c) = quant16(v, s, rcp);
     }
+}
+
+// The local row abs-max of a row-parallel linear: amax[row] = max_k |x[row, k]| (fp32), one warp a row.
+template <typename T>
+__global__ void __launch_bounds__(QROWS * 32)
+row_amax_kernel(const T* __restrict__ x, float* __restrict__ amax, int m, int k) {
+    const int row = blockIdx.x * QROWS + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+    if (row >= m) return;
+    const float a = row_absmax<T>(x + (size_t)row * k, k, lane);
+    if (lane == 0) amax[row] = a;
+}
+
+// The summed int32 accumulators of a row-parallel linear rescaled as the product kernel's epilogue does:
+// out = round_T((float(acc) * sx[row]) * s_w[col]), sx from the row's (global) abs-max with the floors; a
+// bias is added after that rounding, in fp32, and rounded again. Four columns a thread (n % 16 == 0).
+template <typename T>
+__global__ void __launch_bounds__(256)
+rescale_rows_kernel(const int* __restrict__ acc, const float* __restrict__ amax, const float* __restrict__ s_w,
+                    const T* __restrict__ bias, T* __restrict__ out, int m, int n, float amax_floor,
+                    float scale_floor) {
+    const size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+    if (i >= (size_t)m * n) return;
+    const int row = (int)(i / n), col = (int)(i % n);
+    const float sx = scale_of(__ldg(amax + row), amax_floor, scale_floor);
+    const int4 a = *reinterpret_cast<const int4*>(acc + i);
+    const float4 sw = *reinterpret_cast<const float4*>(s_w + col);
+    const int ai[4] = {a.x, a.y, a.z, a.w};
+    const float swi[4] = {sw.x, sw.y, sw.z, sw.w};
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = __fmul_rn(__fmul_rn(__int2float_rn(ai[e]), sx), swi[e]);
+    if (bias != nullptr) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[e] = with_bias(T{}, v[e], to_float(bias[col + e]));
+    }
+    put2(reinterpret_cast<unsigned char*>(out + i), T{}, v[0], v[1]);
+    put2(reinterpret_cast<unsigned char*>(out + i + 2), T{}, v[2], v[3]);
 }
 
 // ---------------------------------------------------------------------------
@@ -591,6 +662,7 @@ struct Call {
     const void* wt;
     const float* s_w;
     const void* bias;
+    const float* amax;
     void* out;
     int8_t* xq;
     float* sx;
@@ -598,12 +670,12 @@ struct Call {
     float amax_floor, scale_floor;
 };
 
-template <typename T, bool STREAM>
+template <typename T, bool STREAM, bool RAW>
 int launch(const Call& c, cudaStream_t stream) {
     using Cf = Cfg<STREAM>;
     const size_t smem = Cf::smem(c.k);
     if (Cf::stages(c.k) == 0) return (int)cudaErrorInvalidValue;
-    auto kernel = quant_matmul_kernel<T, STREAM>;
+    auto kernel = quant_matmul_kernel<T, STREAM, RAW>;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
 
@@ -612,6 +684,7 @@ int launch(const Call& c, cudaStream_t stream) {
     p.sx = c.sx;
     p.s_w = c.s_w;
     p.bias = c.bias;
+    p.amax = c.amax;
     p.m = c.m;
     p.k = c.k;
     p.n = c.n;
@@ -623,13 +696,17 @@ int launch(const Call& c, cudaStream_t stream) {
 
     CUtensorMap wmap, amap, omap;
     int e = hp::make_map_2d(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, c.wt, c.k, c.n, c.k, BK, BN);
+    using O = std::conditional_t<RAW, int, T>;
     if (!e)
-        e = hp::make_map_2d(&omap, sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-                            c.out, c.n, c.m, (uint64_t)c.n * sizeof(T), 128 / sizeof(T), 8);
+        e = hp::make_map_2d(&omap,
+                            RAW                ? CU_TENSOR_MAP_DATA_TYPE_INT32
+                            : sizeof(T) == 2   ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                               : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                            c.out, c.n, c.m, (uint64_t)c.n * sizeof(O), 128 / sizeof(O), 8);
     if (e) return e;
     if constexpr (STREAM) {
         quantize_rows_kernel<T><<<cdiv(c.m, QROWS), QROWS * 32, 0, stream>>>(
-            static_cast<const T*>(c.x), c.xq, c.sx, c.m, c.k, c.amax_floor, c.scale_floor);
+            static_cast<const T*>(c.x), c.xq, c.sx, c.amax, c.m, c.k, c.amax_floor, c.scale_floor);
         err = cudaGetLastError();
         if (err != cudaSuccess) return (int)err;
         e = hp::make_map_2d(&amap, CU_TENSOR_MAP_DATA_TYPE_UINT8, c.xq, c.k, c.m, c.k, BK, BM);
@@ -646,22 +723,61 @@ int launch(const Call& c, cudaStream_t stream) {
 extern "C" {
 
 // x: (m, k) contiguous, bf16 (is_bf16 = 1) or fp32; wt: (n, k) int8 contiguous
-// (w_q transposed); s_w: (n,) fp32; bias: (n,) in x's type or null; out: (m, n)
-// in x's type; xq (m, k) int8 and sx (m,) fp32: scratch of the streamed path
-// (stream_a = 1), else unused. k and n multiples of 16, k <= f5_quant_matmul_max_k().
+// (w_q transposed); s_w: (n,) fp32; bias: (n,) in x's type or null; amax: (m,)
+// fp32, a given per-row abs-max, or null (the kernel takes its own); out: (m, n)
+// in x's type, or int32 accumulators with raw = 1 (s_w and bias then unread,
+// bias must be null); xq (m, k) int8 and sx (m,) fp32: scratch of the streamed
+// path (stream_a = 1), else unused. k and n multiples of 16, k <= f5_quant_matmul_max_k().
 // The plan: the n / 128 tiles split over `split` blocks per 128-row block.
 // Returns the cudaError_t of the launch.
-int f5_quant_matmul(const void* x, const void* wt, const void* s_w, const void* bias, void* out, void* xq, void* sx,
-                    int m, int k, int n, float amax_floor, float scale_floor, int is_bf16, int stream_a, int split,
-                    void* stream) {
+int f5_quant_matmul(const void* x, const void* wt, const void* s_w, const void* bias, const void* amax, void* out,
+                    void* xq, void* sx, int m, int k, int n, float amax_floor, float scale_floor, int is_bf16,
+                    int stream_a, int split, int raw, void* stream) {
     if (m < 1 || k < 16 || n < 16 || k % 16 != 0 || n % 16 != 0 || k > MAX_K || split < 1 || split > 65535)
         return (int)cudaErrorInvalidValue;
-    if (stream_a && (xq == nullptr || sx == nullptr)) return (int)cudaErrorInvalidValue;
-    const Call c{x, wt, static_cast<const float*>(s_w), bias, out, static_cast<int8_t*>(xq), static_cast<float*>(sx),
-                 m, k, n, split, amax_floor, scale_floor};
+    if ((stream_a && (xq == nullptr || sx == nullptr)) || (raw && bias != nullptr)) return (int)cudaErrorInvalidValue;
+    const Call c{x, wt, static_cast<const float*>(s_w), bias, static_cast<const float*>(amax), out,
+                 static_cast<int8_t*>(xq), static_cast<float*>(sx), m, k, n, split, amax_floor, scale_floor};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (stream_a) return is_bf16 ? launch<bf16, true>(c, s) : launch<float, true>(c, s);
-    return is_bf16 ? launch<bf16, false>(c, s) : launch<float, false>(c, s);
+    if (raw) {
+        if (stream_a) return is_bf16 ? launch<bf16, true, true>(c, s) : launch<float, true, true>(c, s);
+        return is_bf16 ? launch<bf16, false, true>(c, s) : launch<float, false, true>(c, s);
+    }
+    if (stream_a) return is_bf16 ? launch<bf16, true, false>(c, s) : launch<float, true, false>(c, s);
+    return is_bf16 ? launch<bf16, false, false>(c, s) : launch<float, false, false>(c, s);
+}
+
+// amax (m,) fp32 = the abs-max of each row of x (m, k) (contiguous, bf16 or fp32, k % 16 == 0, 16-byte aligned).
+int f5_quant_row_amax(const void* x, void* amax, int m, int k, int is_bf16, void* stream) {
+    if (m < 1 || k < 16 || k % 16 != 0) return (int)cudaErrorInvalidValue;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    float* out = static_cast<float*>(amax);
+    if (is_bf16)
+        row_amax_kernel<bf16><<<cdiv(m, QROWS), QROWS * 32, 0, s>>>(static_cast<const bf16*>(x), out, m, k);
+    else
+        row_amax_kernel<float><<<cdiv(m, QROWS), QROWS * 32, 0, s>>>(static_cast<const float*>(x), out, m, k);
+    return (int)cudaGetLastError();
+}
+
+// out (m, n) in bf16 (is_bf16 = 1) or fp32 = the int32 accumulators acc (m, n) rescaled by the row scales
+// (from amax (m,) and the floors) and s_w (n,), plus bias (n,) in out's type or null. n % 16 == 0, every
+// pointer 16-byte aligned.
+int f5_quant_rescale_rows(const void* acc, const void* amax, const void* s_w, const void* bias, void* out, int m, int n,
+                          float amax_floor, float scale_floor, int is_bf16, void* stream) {
+    if (m < 1 || n < 16 || n % 16 != 0) return (int)cudaErrorInvalidValue;
+    const size_t threads = (size_t)m * n / 4;
+    const unsigned blocks = (unsigned)((threads + 255) / 256);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int* a = static_cast<const int*>(acc);
+    const float* am = static_cast<const float*>(amax);
+    const float* sw = static_cast<const float*>(s_w);
+    if (is_bf16)
+        rescale_rows_kernel<bf16><<<blocks, 256, 0, s>>>(a, am, sw, static_cast<const bf16*>(bias),
+                                                         static_cast<bf16*>(out), m, n, amax_floor, scale_floor);
+    else
+        rescale_rows_kernel<float><<<blocks, 256, 0, s>>>(a, am, sw, static_cast<const float*>(bias),
+                                                          static_cast<float*>(out), m, n, amax_floor, scale_floor);
+    return (int)cudaGetLastError();
 }
 
 // Dynamic shared memory of the product kernel of either path at this k, in bytes (0: it does not fit).

@@ -42,7 +42,10 @@ rank's blocks run the serving kernels on its own heads (head-0 RoPE on model
 rank 0 only). ``bucket_program``, the step batcher and ``forward_fn``/
 ``embed_fn`` see only local shards. The host's seed generator starts from a
 seed broadcast from rank 0, so requests without a seed draw the same noise on
-every rank. int8 under ``model > 1`` raises (``ROADMAP.md`` A.8).
+every rank. With ``quantization="int8"`` the engine shards, then quantizes,
+as the JAX engine does: the row-parallel linears' scales are the whole
+weight's and their row abs-max is all-reduced, so a sharded int8 solve equals
+the one-device int8 solve bit for bit (``models/modules.py``).
 """
 
 from __future__ import annotations
@@ -192,10 +195,6 @@ class TTSEngine:
             if device is not None and resolve_device(device).type != mesh.device.type:
                 raise ValueError(f"device {device!r} differs from the mesh's {mesh.device}")
             device = mesh.device
-            if cfg.quantization == "int8" and mesh["model"].size > 1:
-                from f5tts_tpu_torch.models.modules import INT8_TP_ITEM
-
-                raise NotImplementedError(f"quantization='int8' under model_parallel > 1 is not ported: {INT8_TP_ITEM}")
         self.mesh = mesh
         self.device = resolve_device(device)
         self.compute_dtype = _DTYPES[cfg.compute_dtype]
@@ -208,9 +207,9 @@ class TTSEngine:
         if cfg.quantization == "int8":
             if "blocks" not in self.dit_params:
                 raise ValueError("quantization='int8' quantizes the DiT's blocks; this backbone has none")
-            # after the dtype cast, on the device: the scales come from the
-            # weights as served (rounded to bf16) and stay fp32
-            self.dit_params = quantize_dit_params(self.dit_params)
+            # after the dtype cast and the sharding, on the device: the scales
+            # come from the weights as served (rounded to bf16) and stay fp32
+            self.dit_params = quantize_dit_params(self.dit_params, tp=mesh["model"] if mesh is not None else None)
         self.dit_cfg = dataclasses.replace(dit_cfg, attn_impl="flash", conv_pos_impl="fused")
         self.forward_fn, self.embed_fn = forward_fn, embed_fn
         self.tokenizer = tokenizer

@@ -11,9 +11,11 @@
   dropout from per-block seeds, and each block under activation
   checkpointing (the JAX package remats each scanned block);
 - multi-device: ``tp`` (the mesh's ``model`` axis) runs the blocks on this
-  rank's Megatron shards, ``cp`` the ring attention of ``attn_impl="ring"``,
-  and ``batch_rows`` places a data-parallel rank's rows in the global batch
-  for its dropout masks (``models/modules.py``).
+  rank's Megatron shards, int8-quantized ones included
+  (``quantize_dit_params(tp=)``), ``cp`` the ring attention of
+  ``attn_impl="ring"`` (serving and training), and ``batch_rows`` places a
+  data-parallel rank's rows in the global batch for its dropout masks
+  (``models/modules.py``).
 
 Parameters are the JAX tree: nested dicts of tensors, the blocks stacked
 with a leading depth axis (``models/convert.py:dit_params_from_numpy``).
@@ -195,15 +197,22 @@ def dit_forward(
     return m.linear(params["proj_out"], h)
 
 
-def quantize_dit_params(params):
+def quantize_dit_params(params, tp=None):
     """Int8-quantize the hot matmuls (q/k/v/out and feed-forward in/out of all
     blocks, on their stacked depth axis); embeddings, convs, AdaLN and the
     output projection stay floating. Serving-only: the quantized leaves are
-    not differentiable."""
+    not differentiable. ``tp``: ``params`` are this rank's shards
+    (``parallel/sharding.py``); the row-parallel ``to_out`` and ``out`` take
+    the whole weight's column scales (an abs-max all-reduced over ``tp``),
+    so every shard is the one-device tree's slice, as the JAX engine
+    quantizes its sharded global view."""
     blocks = params["blocks"]
+    row_parallel = ("to_out", "out")
     q_blocks = {
         **blocks,
-        "attn": {name: m.quantize_linear_params(blocks["attn"][name]) for name in ("to_q", "to_k", "to_v", "to_out")},
-        "ff": {name: m.quantize_linear_params(blocks["ff"][name]) for name in ("in", "out")},
+        "attn": {name: m.quantize_linear_params(blocks["attn"][name], tp if name in row_parallel else None)
+                 for name in ("to_q", "to_k", "to_v", "to_out")},
+        "ff": {name: m.quantize_linear_params(blocks["ff"][name], tp if name in row_parallel else None)
+               for name in ("in", "out")},
     }
     return {**params, "blocks": q_blocks}

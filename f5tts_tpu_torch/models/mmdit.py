@@ -14,10 +14,17 @@ is ``ops/attention.py:sdpa``, the plain attention: the JAX package runs it
 through XLA (``sdpa_xla``), not a Pallas kernel. The JAX package has no engine or CLI path for this backbone, and
 neither has the port. Training (``mmdit_forward(training=True)``) runs each
 block under ``torch.utils.checkpoint`` (the JAX package remats each scanned
-block); dropout is not applied, as in the JAX MMDiT. It trains data-parallel
-(``tp`` of size 1); tensor parallelism raises: its joint attention's
-``to_out_c`` is column-parallel under the JAX package's key rule, a Megatron
-split of its own (``ROADMAP.md`` A.8).
+block); dropout is not applied, as in the JAX MMDiT.
+
+Tensor parallelism (``tp``, the mesh's ``model`` axis) follows the JAX specs
+(``parallel/sharding.py``): ``heads // tp.size`` local heads, the six q/k/v
+projections column-parallel behind ``tp_input``, ``to_out`` row-parallel,
+the feed-forwards, AdaLN and the embeddings replicated, the flat-RoPE quirk
+on model rank 0 only (global head 0), for the audio and the text stream.
+``to_out_c`` is column-parallel under the JAX key rule, so it gathers the
+heads' output first and its output columns after
+(``modules.gathered_column_linear``). Context parallelism raises: the JAX
+MMDiT has no ring path (its joint attention is always ``sdpa_xla``).
 """
 
 from __future__ import annotations
@@ -47,11 +54,22 @@ class MMDiTConfig:
     conv_pos_impl: str = "fused"  # "fused" (kernel wrapper) | "plain"
 
 
-def _joint_attention(p, x, c, heads: int, freqs_x, freqs_c, mask, context_pre_only: bool):
+def _rotary(t, freqs):
+    return t if freqs is None else apply_rotary(t, freqs)
+
+
+def _joint_attention(p, x, c, heads: int, freqs_x, freqs_c, mask, context_pre_only: bool, tp=None):
     b, n, _ = x.shape
     nt = c.shape[1]
-    q = torch.cat([apply_rotary(m.linear(p["to_q"], x), freqs_x), apply_rotary(m.linear(p["to_q_c"], c), freqs_c)], 1)
-    k = torch.cat([apply_rotary(m.linear(p["to_k"], x), freqs_x), apply_rotary(m.linear(p["to_k_c"], c), freqs_c)], 1)
+    if tp is not None and tp.size > 1:
+        if heads % tp.size:
+            raise ValueError(f"{heads} heads do not divide over {tp.size} model ranks")
+        heads //= tp.size
+        if tp.index > 0:  # the flat RoPE rotates global head 0, which lives on model rank 0
+            freqs_x = freqs_c = None
+    x, c = m.tp_input(x, tp), m.tp_input(c, tp)
+    q = torch.cat([_rotary(m.linear(p["to_q"], x), freqs_x), _rotary(m.linear(p["to_q_c"], c), freqs_c)], 1)
+    k = torch.cat([_rotary(m.linear(p["to_k"], x), freqs_x), _rotary(m.linear(p["to_k_c"], c), freqs_c)], 1)
     v = torch.cat([m.linear(p["to_v"], x), m.linear(p["to_v_c"], c)], 1)
 
     def split_heads(t):
@@ -60,20 +78,21 @@ def _joint_attention(p, x, c, heads: int, freqs_x, freqs_c, mask, context_pre_on
     key_mask = F.pad(mask, (0, nt), value=True) if mask is not None else None  # text keys stay valid
     o = sdpa(split_heads(q), split_heads(k), split_heads(v), key_mask)
     o = o.transpose(1, 2).reshape(b, n + nt, -1)
-    xo = m.linear(p["to_out"], o[:, :n])
-    co = o[:, n:] if context_pre_only else m.linear(p["to_out_c"], o[:, n:])
+    xo = m.row_parallel_linear(p["to_out"], o[:, :n], tp)
+    co = o[:, n:] if context_pre_only else m.gathered_column_linear(p["to_out_c"], o[:, n:], tp)
     if mask is not None:
         xo = m._where_rows(mask, xo)
     return xo, co
 
 
-def _block(p, x, c, t, heads: int, freqs_x, freqs_c, mask, context_pre_only: bool):
+def _block(p, x, c, t, heads: int, freqs_x, freqs_c, mask, context_pre_only: bool, tp=None):
     if context_pre_only:
         norm_c = m.adaln_zero_final(p["attn_norm_c"], c, t)
     else:
         norm_c, c_gate_msa, c_shift_mlp, c_scale_mlp, c_gate_mlp = m.adaln_zero(p["attn_norm_c"], c, t)
     norm_x, x_gate_msa, x_shift_mlp, x_scale_mlp, x_gate_mlp = m.adaln_zero(p["attn_norm_x"], x, t)
-    x_attn, c_attn = _joint_attention(p["attn"], norm_x, norm_c, heads, freqs_x, freqs_c, mask, context_pre_only)
+    x_attn, c_attn = _joint_attention(p["attn"], norm_x, norm_c, heads, freqs_x, freqs_c, mask, context_pre_only,
+                                      tp)
     if context_pre_only:
         c = None
     else:
@@ -108,15 +127,15 @@ def mmdit_forward(
     compute_dtype: torch.dtype = torch.float32,
     training: bool = False,
     dropout_seed: int | None = None,  # accepted for the trainer's interface; no dropout (as in JAX)
-    tp=None,  # the mesh's model axis: size 1 only
-    cp=None,  # no ring path
+    tp=None,  # the mesh's model axis: the blocks hold this rank's shards
+    cp=None,  # no ring path: raises
     batch_rows: tuple[int, int] | None = None,  # accepted for the trainer's interface (no dropout)
 ) -> torch.Tensor:
     """The MMDiT's velocity prediction ``(b, n, mel_dim)``; with ``training``,
-    per-block activation checkpointing."""
-    if (tp is not None and tp.size > 1) or cp is not None:
-        raise NotImplementedError("the MMDiT runs on one model rank (data parallel only): tensor and context "
-                                  "parallelism of its joint attention are ROADMAP.md A.8 (MMDiT under TP)")
+    per-block activation checkpointing; ``tp``: see the module docstring."""
+    if cp is not None:
+        raise NotImplementedError("the MMDiT has no context-parallel path: its joint attention is the plain sdpa "
+                                  "over the whole sequence, as the JAX MMDiT's is always sdpa_xla")
     b, n, _ = x.shape
     if time.ndim == 0:
         time = time.expand(b)
@@ -134,11 +153,11 @@ def mmdit_forward(
     freqs_x, freqs_c = _rope_table(n, cfg.dim_head, dev)[0], _rope_table(c.shape[1], cfg.dim_head, dev)[0]
     for i in range(stack_depth(params["blocks"])):
         blk = block(params["blocks"], i)
-        args = (blk, h, c, t, cfg.heads, freqs_x, freqs_c, mask, False)
+        args = (blk, h, c, t, cfg.heads, freqs_x, freqs_c, mask, False, tp)
         if training:  # each block under activation checkpointing
             h, c = checkpoint(_block, *args, use_reentrant=False, preserve_rng_state=False)
         else:
             h, c = _block(*args)
-    h, _ = _block(params["final_block"], h, c, t, cfg.heads, freqs_x, freqs_c, mask, True)
+    h, _ = _block(params["final_block"], h, c, t, cfg.heads, freqs_x, freqs_c, mask, True, tp)
     h = m.adaln_zero_final(params["norm_out"], h, t)
     return m.linear(params["proj_out"], h)

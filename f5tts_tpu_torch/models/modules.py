@@ -29,8 +29,13 @@ bias added once, after the sum. The input of the column-parallel linears
 passes ``tp_input`` (identity forward, its gradient summed over ``tp``).
 The flat-RoPE quirk rotates global head 0, which lives on model rank 0: the
 other ranks rotate nothing. ``tp`` of size 1 takes the one-device code as it
-is. ``attention(impl="ring")`` is context-parallel ring attention over the
-``cp`` axis (``parallel/ring_attention.py``).
+is. Int8 linears under ``tp`` follow the JAX global view: a column-parallel
+one quantizes its (replicated) input as on one device; a row-parallel one
+all-reduces the row abs-max with MAX, takes the int32 accumulators of its
+K-shard, sums them over ``tp`` and rescales once (``_row_parallel_int8``),
+so it equals the one-device linear bit for bit. ``attention(impl="ring")``
+is context-parallel ring attention over the ``cp`` axis
+(``parallel/ring_attention.py``), differentiable for training.
 """
 
 from __future__ import annotations
@@ -38,16 +43,17 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from f5tts_tpu_torch.ops.attention import sdpa
 from f5tts_tpu_torch.ops.kernels.conv_pos import conv_pos, conv_pos_plain, conv_pos_train, mish  # noqa: F401 (mish: layer API)
 from f5tts_tpu_torch.ops.kernels.flash_attention import flash_attention
 from f5tts_tpu_torch.ops.kernels.flash_attention_train import flash_attention_train
-from f5tts_tpu_torch.ops.kernels.quant_matmul import kernel_layout, quant_matmul
+from f5tts_tpu_torch.ops.kernels.quant_matmul import kernel_layout, quant_matmul, rescale_rows, row_amax
 from f5tts_tpu_torch.ops.rope import apply_rotary, apply_rotary_per_head
 
-INT8_TP_ITEM = "ROADMAP.md A.8 (int8 under tensor parallelism: an all-reduced row abs-max)"
+INT8_FLOORS = dict(amax_floor=0.0, scale_floor=1e-8)  # _linear_int8's floor in the JAX package: the scale at 1e-8
 
 
 def _parallel(tp) -> bool:
@@ -81,6 +87,60 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
+class _GatherFeatures(torch.autograd.Function):
+    """All-gather of this rank's slice of the last axis (the local heads'
+    output) for a column-parallel linear that reads it whole. Its gradient,
+    partial on each rank (each rank's columns see the whole input), is summed
+    over ``tp`` and each rank keeps its slice."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return tp.all_gather(x, x.ndim - 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        tp = ctx.tp
+        g = tp.all_reduce(g.contiguous().clone())
+        step = g.shape[-1] // tp.size
+        return g.narrow(-1, tp.index * step, step), None
+
+
+class _GatherColumns(torch.autograd.Function):
+    """All-gather of a column-parallel linear's output columns for a
+    replicated consumer. Its gradient is replicated, so each rank keeps its
+    own columns."""
+
+    @staticmethod
+    def forward(ctx, y, tp):
+        ctx.tp = tp
+        return tp.all_gather(y, y.ndim - 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        tp = ctx.tp
+        step = g.shape[-1] // tp.size
+        return g.narrow(-1, tp.index * step, step), None
+
+
+def _gather(fn, t, tp):
+    if torch.is_grad_enabled() and t.requires_grad:
+        return fn.apply(t, tp)
+    return tp.all_gather(t, t.ndim - 1)
+
+
+def gathered_column_linear(p, x, tp):
+    """``linear`` with its output axis sharded over ``tp`` (``w (in, out)``
+    on ``out`` and its bias with it) whose input is this rank's slice of the
+    features and whose output feeds replicated code: the MMDiT's
+    ``to_out_c`` under the JAX key rule. The input's slices are gathered
+    (``_GatherFeatures``), the local columns computed, and the output's
+    columns gathered (``_GatherColumns``). One device: ``linear`` itself."""
+    if not _parallel(tp):
+        return linear(p, x)
+    return _gather(_GatherColumns, linear(p, _gather(_GatherFeatures, x, tp)), tp)
+
+
 def tp_input(x, tp):
     """The input of column-parallel linears (see ``_CopyToModel``)."""
     if _parallel(tp) and torch.is_grad_enabled() and x.requires_grad:
@@ -91,11 +151,12 @@ def tp_input(x, tp):
 def row_parallel_linear(p, x, tp):
     """``linear`` with its input axis sharded over ``tp``: the partial
     products summed over the model group, then the (replicated) bias added
-    once. One device: ``linear`` itself."""
+    once; int8 params go through ``_row_parallel_int8``. One device:
+    ``linear`` itself."""
     if not _parallel(tp):
         return linear(p, x)
     if "w_q" in p:
-        raise NotImplementedError(f"int8 linears under tensor parallelism are not ported: {INT8_TP_ITEM}")
+        return _row_parallel_int8(p, x, tp)
     y = x @ p["w"].to(x.dtype)
     y = _ReduceFromModel.apply(y, tp) if torch.is_grad_enabled() and y.requires_grad else tp.all_reduce(y)
     if "b" in p:
@@ -122,15 +183,38 @@ def _linear_int8(p, x):
     ``s_w``, optional ``b``, and on a GPU the kernel-layout copy ``w_qt``."""
     k, n = p["w_q"].shape
     return quant_matmul(x.reshape(-1, k).contiguous(), p["w_q"], p["s_w"], w_qt=p.get("w_qt"), b=p.get("b"),
-                        amax_floor=0.0, scale_floor=1e-8).reshape(*x.shape[:-1], n)
+                        **INT8_FLOORS).reshape(*x.shape[:-1], n)
 
 
-def quantize_linear_params(p):
+def _row_parallel_int8(p, x, tp):
+    """``_linear_int8`` of a row-parallel linear (``w_q`` this rank's K-shard,
+    ``s_w`` the whole weight's scales): the local row abs-max all-reduced with
+    MAX (the JAX global view spans the whole row), the int32 accumulators of
+    this shard (``quant_matmul(amax=, raw=True)``) summed over ``tp`` (exact:
+    the whole K stays under ``MAX_K``), then one rescale with the bias
+    (``rescale_rows``). Bit-equal to the one-device linear; on a GPU three
+    kernel launches."""
+    k, n = p["w_q"].shape
+    x2 = x.reshape(-1, k).contiguous()
+    amax = tp.all_reduce(row_amax(x2), op=dist.ReduceOp.MAX)
+    acc = tp.all_reduce(quant_matmul(x2, p["w_q"], p["s_w"], w_qt=p.get("w_qt"), amax=amax, raw=True,
+                                     **INT8_FLOORS))
+    y = rescale_rows(acc, amax, p["s_w"], b=p.get("b"), dtype=x.dtype, **INT8_FLOORS)
+    return y.reshape(*x.shape[:-1], n)
+
+
+def quantize_linear_params(p, tp=None):
     """fp Linear params -> int8 symmetric per-out-channel quantized form
     ``{w_q, s_w[, b]}``; leading (stacked-depth) axes are kept. On a GPU the
-    kernel's K-contiguous copy ``w_qt`` is made here, once."""
+    kernel's K-contiguous copy ``w_qt`` is made here, once, from this rank's
+    ``w_q``. ``tp``: the weight is this rank's K-shard of a row-parallel
+    linear; the per-column abs-max is all-reduced with MAX over it, so the
+    scales are the whole weight's (as the JAX engine quantizes its global
+    view)."""
     w = p["w"].float()
     amax = w.abs().amax(-2)
+    if _parallel(tp):
+        amax = tp.all_reduce(amax, op=dist.ReduceOp.MAX)
     s = torch.clamp_min(amax, 1e-8) / torch.full_like(amax, 127.0)
     wq = torch.clamp(torch.round(w / s.unsqueeze(-2)), -127, 127).to(torch.int8)
     out = {"w_q": wq, "s_w": s}
@@ -344,8 +428,9 @@ def attention(p, x, heads: int, rope_freqs=None, mask=None, impl: str = "flash",
     is handed to it) or, with ``training``, RoPE in PyTorch and the
     differentiable kernels; ``'plain'`` applies RoPE on the flat projection
     (head 0) or per head, then ``sdpa``; ``'ring'`` does the same RoPE, then
-    ring attention over the ``cp`` axis (serving only). ``tp``: this rank's
-    heads (see the module docstring); ``rows``: the dropout window's rows."""
+    ring attention over the ``cp`` axis (serving and training: its backward
+    runs kernel 3b per hop). ``tp``: this rank's heads (see the module
+    docstring); ``rows``: the dropout window's rows."""
     b, n, _ = x.shape
     if _parallel(tp):
         if heads % tp.size:
@@ -380,8 +465,8 @@ def attention(p, x, heads: int, rope_freqs=None, mask=None, impl: str = "flash",
     elif impl == "plain":
         o = sdpa(q, k, v, mask)
     elif impl == "ring":
-        if training or cp is None:
-            raise ValueError("attn_impl='ring' serves only (forward-only ring) and needs the cp axis")
+        if cp is None:
+            raise ValueError("attn_impl='ring' needs the cp axis")
         from f5tts_tpu_torch.parallel.ring_attention import ring_attention
 
         o = ring_attention(q, k, v, mask, cp)

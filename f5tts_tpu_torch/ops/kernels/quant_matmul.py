@@ -22,6 +22,16 @@ operation in a fixed order. ``plan`` picks the kernel's path and its split of
 the N tiles over blocks from the shape (pure Python, tested on the CPU). The
 kernel's source notes its bound and design; ``PERF.md`` has its times on the
 card.
+
+Tensor parallelism (a row-parallel linear, ``models/modules.py``): each rank
+holds a K-shard, but the row's abs-max must span the whole row and the
+product the whole K. ``row_amax`` gives the local abs-max (all-reduced with
+MAX by the caller), ``quant_matmul(amax=..., raw=True)`` quantizes by that
+given abs-max and returns the int32 accumulators (summed over the ranks by the
+caller, exactly), and ``rescale_rows`` applies the row and column scales and
+the bias as the one-device call would: the sharded linear is bit-equal to the
+one-device one. Each is one kernel launch on a CUDA tensor, counted on its own
+wrapper.
 """
 
 from __future__ import annotations
@@ -138,27 +148,59 @@ def kernel_layout(w_q: torch.Tensor) -> torch.Tensor:
     return w_q.transpose(-1, -2).contiguous()
 
 
-def quant_matmul_plain(x, w_q, s_w, *, b=None, amax_floor: float = 1e-6, scale_floor: float = 0.0):
-    """What the kernel computes, in PyTorch. Divisions are by tensors (a
-    division by a Python scalar becomes a multiply by its reciprocal on CUDA),
-    and the integer product is taken in float64, which is exact (sums stay
-    under 2^53; fp32 would lose bits above 2^24 at K = 2048). The bias is
-    ``_linear_int8``'s add, after the rounding to ``x.dtype``."""
+def _row_scale(ax, amax_floor: float, scale_floor: float):
+    """``sx = max(max(ax, amax_floor) / 127, scale_floor)``: a division by a
+    tensor (a division by a Python scalar becomes a multiply by its reciprocal
+    on CUDA)."""
+    return torch.clamp_min(torch.clamp_min(ax, amax_floor) / torch.full_like(ax, 127.0), scale_floor)
+
+
+def row_amax_plain(x):
+    """``(M, K) -> (M,)`` fp32: the abs-max of each row."""
+    return x.float().abs().amax(-1)
+
+
+def quant_matmul_plain(x, w_q, s_w, *, b=None, amax=None, raw: bool = False, amax_floor: float = 1e-6,
+                       scale_floor: float = 0.0):
+    """What the kernel computes, in PyTorch. The integer product is taken in
+    float64, which is exact (sums stay under 2^53; fp32 would lose bits above
+    2^24 at K = 2048). The bias is ``_linear_int8``'s add, after the rounding
+    to ``x.dtype``. ``amax (M,)``: a given row abs-max in place of the rows'
+    own; ``raw``: the int32 accumulators, unscaled (no bias)."""
+    if raw and b is not None:
+        raise ValueError("quant_matmul's raw output takes no bias: rescale_rows adds it")
     x32 = x.float()
-    ax = x32.abs().amax(-1, keepdim=True)
-    sx = torch.clamp_min(torch.clamp_min(ax, amax_floor) / torch.full_like(ax, 127.0), scale_floor)
+    ax = x32.abs().amax(-1, keepdim=True) if amax is None else amax.float()[:, None]
+    sx = _row_scale(ax, amax_floor, scale_floor)
     xq = torch.round(x32 / sx).to(torch.int8)
-    acc = (xq.double() @ w_q.double()).float()
-    y = ((acc * sx) * s_w.float()).to(x.dtype)
+    acc = xq.double() @ w_q.double()
+    if raw:
+        return acc.to(torch.int32)
+    y = ((acc.float() * sx) * s_w.float()).to(x.dtype)
     return y if b is None else y + b.to(x.dtype)
+
+
+def rescale_rows_plain(acc, amax, s_w, *, b=None, dtype=torch.float32, amax_floor: float = 1e-6,
+                       scale_floor: float = 0.0):
+    """The int32 accumulators ``acc (M, N)`` of ``quant_matmul(raw=True)``
+    (summed over the ranks) rescaled as its epilogue does: ``sx`` from the
+    row abs-max ``amax (M,)`` with the floors, ``(acc * sx) * s_w`` in fp32,
+    one rounding to ``dtype``, then the bias added in ``dtype``."""
+    sx = _row_scale(amax.float()[:, None], amax_floor, scale_floor)
+    y = ((acc.float() * sx) * s_w.float()).to(dtype)
+    return y if b is None else y + b.to(dtype)
 
 
 def _lib():
     lib = _build.load("quant_matmul")
     if not getattr(lib, "_f5_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.f5_quant_matmul.argtypes = [p, p, p, p, p, p, p, i, i, i, f, f, i, i, i, p]
+        lib.f5_quant_matmul.argtypes = [p, p, p, p, p, p, p, p, i, i, i, f, f, i, i, i, i, p]
         lib.f5_quant_matmul.restype = i
+        lib.f5_quant_row_amax.argtypes = [p, p, i, i, i, p]
+        lib.f5_quant_row_amax.restype = i
+        lib.f5_quant_rescale_rows.argtypes = [p, p, p, p, p, i, i, f, f, i, p]
+        lib.f5_quant_rescale_rows.restype = i
         lib.f5_quant_matmul_smem.argtypes = [i, i]
         lib.f5_quant_matmul_smem.restype = ctypes.c_longlong
         lib.f5_quant_matmul_max_k.argtypes = []
@@ -171,6 +213,18 @@ def _lib():
         lib.f5_error_string.restype = ctypes.c_char_p
         lib._f5_typed = True
     return lib
+
+
+def _check_floors(amax_floor: float, scale_floor: float) -> None:
+    if not (amax_floor > 0.0 or scale_floor > 0.0) or amax_floor < 0.0 or scale_floor < 0.0:
+        raise ValueError(f"one of amax_floor, scale_floor must be positive and none negative, got {amax_floor}, "
+                         f"{scale_floor}")
+
+
+def _check_amax(amax, m: int, device) -> None:
+    if amax is not None and (amax.shape != (m,) or amax.dtype != torch.float32 or amax.device != device):
+        raise ValueError(f"amax must be a ({m},) fp32 tensor on {device}, got {amax.dtype} {tuple(amax.shape)} on "
+                         f"{amax.device}")
 
 
 def _check(lib, x, w_q, s_w, w_qt, b, amax_floor, scale_floor) -> Plan:
@@ -198,9 +252,7 @@ def _check(lib, x, w_q, s_w, w_qt, b, amax_floor, scale_floor) -> Plan:
     devices = [x.device, w_q.device, s_w.device, w_qt.device] + ([] if b is None else [b.device])
     if any(d != x.device for d in devices):
         raise ValueError(f"x, w_q, s_w, w_qt and b must be on one device, got {devices}")
-    if not (amax_floor > 0.0 or scale_floor > 0.0) or amax_floor < 0.0 or scale_floor < 0.0:
-        raise ValueError(f"one of amax_floor, scale_floor must be positive and none negative, got {amax_floor}, "
-                         f"{scale_floor}")
+    _check_floors(amax_floor, scale_floor)
     return plan(m, k, n, torch.cuda.get_device_properties(x.device).multi_processor_count)
 
 
@@ -213,46 +265,57 @@ def kernel_smem_bytes(streamed: bool, k: int) -> int:
 _checked: dict = {}  # call signature -> its plan, for signatures that passed _check (a DiT forward repeats six)
 
 
-def launch_plan(x, w_qt, s_w, b, p: Plan, amax_floor: float, scale_floor: float):
+def _aligned(*tensors) -> bool:
+    """Every tensor (None skipped) contiguous and 16-byte aligned."""
+    return all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in tensors if t is not None)
+
+
+def _on_device(dev, launch):
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return launch()
+    with torch.cuda.device(dev):  # a tensor on another card than the current one
+        return launch()
+
+
+def launch_plan(x, w_qt, s_w, b, p: Plan, amax_floor: float, scale_floor: float, *, amax=None, raw: bool = False):
     """One launch of the kernel on CUDA tensors with plan ``p`` (checked
-    shapes; ``quant_matmul`` picks the plan, measurements may pass another).
-    Raises if the launch fails."""
-    ptrs = (x.data_ptr(), w_qt.data_ptr(), s_w.data_ptr(), 0 if b is None else b.data_ptr())
-    if (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3]) & 15 or not (x.is_contiguous() and w_qt.is_contiguous()
-                                                           and s_w.is_contiguous() and (b is None or b.is_contiguous())):
-        raise ValueError("x, w_qt, s_w and b must be contiguous and 16-byte aligned")
+    shapes; ``quant_matmul`` picks the plan, measurements may pass another);
+    ``amax``/``raw`` as ``quant_matmul`` takes them. Raises if the launch
+    fails."""
+    if not _aligned(x, w_qt, s_w, b, amax):
+        raise ValueError("x, w_qt, s_w, b and amax must be contiguous and 16-byte aligned")
+    if raw and b is not None:
+        raise ValueError("quant_matmul's raw output takes no bias: rescale_rows adds it")
     m, k = x.shape
     n = w_qt.shape[0]
     dev = x.device
-    out = torch.empty((m, n), dtype=x.dtype, device=dev)
+    out = torch.empty((m, n), dtype=torch.int32 if raw else x.dtype, device=dev)
     xq = torch.empty((m, k), dtype=torch.int8, device=dev) if p.streamed else None
     sx = torch.empty((m,), dtype=torch.float32, device=dev) if p.streamed else None
     lib = _lib()
-
-    def launch():
-        return lib.f5_quant_matmul(*ptrs, out.data_ptr(), None if xq is None else xq.data_ptr(),
-                                   None if sx is None else sx.data_ptr(), m, k, n, amax_floor, scale_floor,
-                                   int(x.dtype == torch.bfloat16), int(p.streamed), p.split,
-                                   torch.cuda.current_stream(dev).cuda_stream)
-
-    if dev.index is None or dev.index == torch.cuda.current_device():
-        err = launch()
-    else:  # a tensor on another card than the current one
-        with torch.cuda.device(dev):
-            err = launch()
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    err = _on_device(dev, lambda: lib.f5_quant_matmul(
+        x.data_ptr(), w_qt.data_ptr(), s_w.data_ptr(), ptr(b), ptr(amax), out.data_ptr(), ptr(xq), ptr(sx), m, k, n,
+        amax_floor, scale_floor, int(x.dtype == torch.bfloat16), int(p.streamed), p.split, int(raw),
+        torch.cuda.current_stream(dev).cuda_stream))
     if err != 0:
         raise RuntimeError(f"quant_matmul kernel launch failed: {lib.f5_error_string(err).decode()}")
     return out
 
 
-def quant_matmul(x, w_q, s_w, *, w_qt=None, b=None, amax_floor: float = 1e-6, scale_floor: float = 0.0):
+def quant_matmul(x, w_q, s_w, *, w_qt=None, b=None, amax=None, raw: bool = False, amax_floor: float = 1e-6,
+                 scale_floor: float = 0.0):
     """``x (M, K)`` bf16/fp32, ``w_q (K, N)`` int8, ``s_w (N,)`` fp32, optional
-    bias ``b (N,)`` -> ``(M, N)`` in ``x.dtype``. CPU tensors take the plain
-    version; CUDA tensors launch the kernel (which reads ``w_qt``) or raise.
-    Serving-only: a CUDA input that requires grad (with grad enabled) raises."""
+    bias ``b (N,)`` -> ``(M, N)`` in ``x.dtype``. ``amax (M,)`` fp32: quantize
+    each row by this abs-max instead of its own (a row-parallel linear's
+    all-reduced one); ``raw``: return the int32 accumulators ``(M, N)``, not
+    rescaled (no bias). CPU tensors take the plain version; CUDA tensors launch
+    the kernel (which reads ``w_qt``) or raise. Serving-only: a CUDA input
+    that requires grad (with grad enabled) raises."""
     dev = x.device
     if dev.type == "cpu":
-        return quant_matmul_plain(x, w_q, s_w, b=b, amax_floor=amax_floor, scale_floor=scale_floor)
+        return quant_matmul_plain(x, w_q, s_w, b=b, amax=amax, raw=raw, amax_floor=amax_floor,
+                                  scale_floor=scale_floor)
     if dev.type != "cuda":
         raise ValueError(f"quant_matmul runs on cuda (kernel) or cpu (plain), got {dev}")
     if torch.is_grad_enabled() and (x.requires_grad or s_w.requires_grad or (b is not None and b.requires_grad)):
@@ -263,12 +326,79 @@ def quant_matmul(x, w_q, s_w, *, w_qt=None, b=None, amax_floor: float = 1e-6, sc
     p = _checked.get(signature)
     if p is None:
         p = _checked[signature] = _check(_lib(), x, w_q, s_w, w_qt, b, amax_floor, scale_floor)
-    out = launch_plan(x, w_qt, s_w, None if b is None else b.to(x.dtype), p, amax_floor, scale_floor)
+    _check_amax(amax, x.shape[0], dev)
+    out = launch_plan(x, w_qt, s_w, None if b is None else b.to(x.dtype), p, amax_floor, scale_floor, amax=amax,
+                      raw=raw)
     _build.count_launch(quant_matmul)
     return out
 
 
+def row_amax(x):
+    """``x (M, K)`` bf16/fp32 -> ``(M,)`` fp32, the abs-max of each row. CPU
+    tensors take the plain version; CUDA tensors launch ``row_amax_kernel``
+    (contiguous x, K a multiple of 16) or raise."""
+    dev = x.device
+    if dev.type == "cpu":
+        return row_amax_plain(x)
+    if dev.type != "cuda" or x.ndim != 2 or x.dtype not in _DTYPES:
+        raise ValueError(f"row_amax takes a (M, K) bf16/fp32 tensor on cuda or cpu, got {x.dtype} "
+                         f"{tuple(x.shape)} on {dev}")
+    m, k = x.shape
+    if m < 1 or k % 16 or not _aligned(x):
+        raise ValueError(f"row_amax takes M >= 1, K a multiple of 16 and a contiguous, 16-byte aligned x; got "
+                         f"({m}, {k})")
+    out = torch.empty((m,), dtype=torch.float32, device=dev)
+    lib = _lib()
+    err = _on_device(dev, lambda: lib.f5_quant_row_amax(x.data_ptr(), out.data_ptr(), m, k,
+                                                        int(x.dtype == torch.bfloat16),
+                                                        torch.cuda.current_stream(dev).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"row_amax kernel launch failed: {lib.f5_error_string(err).decode()}")
+    _build.count_launch(row_amax)
+    return out
+
+
+def rescale_rows(acc, amax, s_w, *, b=None, dtype=torch.float32, amax_floor: float = 1e-6,
+                 scale_floor: float = 0.0):
+    """``acc (M, N)`` int32 (``quant_matmul(raw=True)``'s, summed over the
+    ranks), ``amax (M,)`` fp32, ``s_w (N,)`` fp32, optional bias ``b (N,)`` ->
+    ``(M, N)`` in ``dtype`` (bf16/fp32): what ``quant_matmul`` returns for
+    the whole K. CPU tensors take the plain version; CUDA tensors launch
+    ``rescale_rows_kernel`` or raise."""
+    dev = acc.device
+    if dev.type == "cpu":
+        return rescale_rows_plain(acc, amax, s_w, b=b, dtype=dtype, amax_floor=amax_floor, scale_floor=scale_floor)
+    if dev.type != "cuda":
+        raise ValueError(f"rescale_rows runs on cuda (kernel) or cpu (plain), got {dev}")
+    if acc.ndim != 2 or acc.dtype != torch.int32 or dtype not in _DTYPES:
+        raise TypeError(f"rescale_rows takes (M, N) int32 accumulators into bf16 or fp32, got {acc.dtype} "
+                        f"{tuple(acc.shape)} into {dtype}")
+    m, n = acc.shape
+    if m < 1 or n % 16:
+        raise ValueError(f"rescale_rows takes M >= 1 and N a multiple of 16, got ({m}, {n})")
+    if s_w.dtype != torch.float32 or s_w.shape != (n,) or s_w.device != dev:
+        raise ValueError(f"s_w must be a ({n},) fp32 tensor on {dev}")
+    if b is not None and (b.shape != (n,) or b.device != dev):
+        raise ValueError(f"b must be a ({n},) tensor on {dev}")
+    _check_amax(amax, m, dev)
+    _check_floors(amax_floor, scale_floor)
+    b = None if b is None else b.to(dtype)
+    if not _aligned(acc, amax, s_w, b):
+        raise ValueError("acc, amax, s_w and b must be contiguous and 16-byte aligned")
+    out = torch.empty((m, n), dtype=dtype, device=dev)
+    lib = _lib()
+    err = _on_device(dev, lambda: lib.f5_quant_rescale_rows(
+        acc.data_ptr(), amax.data_ptr(), s_w.data_ptr(), None if b is None else b.data_ptr(), out.data_ptr(), m, n,
+        amax_floor, scale_floor, int(dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"rescale_rows kernel launch failed: {lib.f5_error_string(err).decode()}")
+    _build.count_launch(rescale_rows)
+    return out
+
+
 quant_matmul.launches = 0
+row_amax.launches = 0
+rescale_rows.launches = 0
 
 
 def _rate_probe(fn_name: str, blocks: int, iters: int, device) -> None:

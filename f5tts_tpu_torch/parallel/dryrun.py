@@ -176,13 +176,17 @@ def parity_worker(rank: int, world: int, inputs_path: str, out_dir: str) -> None
     """The (2, 2), (1, 4) and (4, 1) mesh checks of the tests: TP forwards
     (the DiT, the UNetT),
     the DP x TP loss and gradients, Trainer steps (AdamW, Adafactor), a
-    checkpoint saved under TP and restored, the engine, the train CLI and the
-    MMDiT under DP. Writes ``parity_<rank>.pkl``."""
+    checkpoint saved under TP and restored, the engine, the train CLI, the
+    MMDiT under DP and under DP x TP (forward, loss and gradients, a Trainer
+    step), a row-parallel int8 linear at (1, 4) and the int8 engine at
+    (2, 2). Writes ``parity_<rank>.pkl``."""
     from f5tts_tpu_torch.cli import train as train_cli
     from f5tts_tpu_torch.engine.engine import TTSEngine
     from f5tts_tpu_torch.models.cfm import CFMDraws, cfm_loss
     from f5tts_tpu_torch.models.convert import dit_params_from_numpy, params_from_numpy
     from f5tts_tpu_torch.models.dit import dit_forward
+    from f5tts_tpu_torch.models.mmdit import mmdit_forward
+    from f5tts_tpu_torch.models.modules import quantize_linear_params, row_parallel_linear
     from f5tts_tpu_torch.parallel.mesh import build_mesh
     from f5tts_tpu_torch.parallel.sharding import shard_params
     from f5tts_tpu_torch.text.tokenizer import Tokenizer
@@ -257,6 +261,44 @@ def parity_worker(rank: int, world: int, inputs_path: str, out_dir: str) -> None
     out["mmdit"] = {"loss": float(trainer.step(state, inp["mmdit"]["batch"])["loss"]),
                     "params": _np_tree(state["params"])}
 
+    # the MMDiT under DP x TP: a forward, the loss and gradients, a Trainer step
+    mm = inp["mmdit"]
+    model_cfg, train_cfg = mm["cfgs"]
+    with torch.no_grad():
+        out["mmdit_fwd_22"] = mmdit_forward(shard_params(params_from_numpy(mm["np"], "cpu", torch.float32), mesh22),
+                                            model_cfg.model, x, cond, text, time, f, f, tp=mesh22["model"]).numpy()
+    params = shard_params(params_from_numpy(mm["np"], "cpu", torch.float32), mesh22)
+    params = tree_map(lambda t: t.requires_grad_(True), params)
+    loss, _ = cfm_loss(params, model_cfg, draws, mel[sl], text_l[sl], lens[sl], mesh=mesh22)
+    loss.backward()
+    out["mmdit_loss_22"] = float(mesh22["data"].all_reduce(loss.detach().clone()))
+    out["mmdit_grads_22"] = _global_grads(params, mesh22)
+    trainer = Trainer(model_cfg, train_cfg, compute_dtype=torch.float32, device="cpu", mesh=mesh22)
+    state = trainer.shard(init_train_state(model_cfg, train_cfg, "cpu", mm["np"]))
+    out["mmdit_22"] = {"loss": float(trainer.step(state, mm["batch"])["loss"]),
+                       "params": _np_tree(trainer.whole(state)["params"])}
+
+    # int8 under TP: a row-parallel linear at (1, 4) (its K-shards, the scales of the whole weight), and the
+    # int8 engine at (2, 2) through its bucket program with explicit noise
+    lin = inp["int8_linear"]
+    tp = mesh14["model"]
+    ks = lin["w"].shape[0] // tp.size
+    ksl = slice(tp.index * ks, (tp.index + 1) * ks)
+    out["int8_linear"] = {}
+    for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        w, b, xl = (torch.as_tensor(lin[k]).to(dtype) for k in ("w", "b", "x"))
+        q = quantize_linear_params({"w": w[ksl], "b": b}, tp)
+        with torch.no_grad():
+            y = row_parallel_linear(q, xl[..., ksl], tp)
+        out["int8_linear"][name] = {"y": y.float().numpy(), "s_w": q["s_w"].numpy(), "w_q": q["w_q"].numpy()}
+    e8 = inp["engine_int8"]
+    engine = TTSEngine(e8["dit_np"], e8["dit_cfg"], e8["voc_np"], Tokenizer(e8["vocab"]), e8["cfg"], device="cpu",
+                       mesh=mesh22)
+    with torch.no_grad():
+        gen, wave = engine.bucket_program(*(torch.as_tensor(a) for a in e8["program"]), steps=2, cfg_strength=2.0,
+                                          y0=torch.as_tensor(e8["y0"]))
+    out["int8_engine"] = {"gen": gen.numpy(), "wave": wave.numpy()}
+
     # the train CLI under the launcher's mesh
     state = train_cli.main(["--smoke", "--device", "cpu", "--model-parallel", "2"])
     out["cli"] = {"step": state["step"], "finite": all(bool(torch.isfinite(t).all())
@@ -265,9 +307,11 @@ def parity_worker(rank: int, world: int, inputs_path: str, out_dir: str) -> None
 
 
 def ring_worker(rank: int, world: int, inputs_path: str, out_dir: str) -> None:
-    """The context-parallel checks: ring attention with and without a mask,
-    the DiT with ``attn_impl="ring"``, and the dry run's rank body. Writes
-    ``ring_<rank>.pkl``."""
+    """The context-parallel checks: ring attention with and without a mask
+    (its output, and the q/k/v gradients of a fixed linear function of it),
+    the DiT with ``attn_impl="ring"`` (its forward, and the parameter
+    gradients of a training loss through the ring), and the dry run's rank
+    body. Writes ``ring_<rank>.pkl``."""
     from f5tts_tpu_torch.models.convert import dit_params_from_numpy
     from f5tts_tpu_torch.models.dit import dit_forward
     from f5tts_tpu_torch.parallel.mesh import build_mesh
@@ -286,6 +330,15 @@ def ring_worker(rank: int, world: int, inputs_path: str, out_dir: str) -> None:
         x, text, t, mask = (torch.as_tensor(a) for a in f["inputs"])
         drop = torch.zeros((x.shape[0],), dtype=torch.bool)
         out["dit_ring"] = dit_forward(params, cfg, x, x, text, t, drop, drop, mask, cp=cp).numpy()
+    g = torch.as_tensor(inp["upstream"])
+    for name, m in (("ring_grads", None), ("ring_masked_grads", torch.as_tensor(inp["mask"]))):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        (ring_attention(*leaves, m, cp) * g).sum().backward()
+        out[name] = [t.grad.numpy() for t in leaves]
+    params = tree_map(lambda t: t.requires_grad_(True), params)
+    y = dit_forward(params, cfg, x, x, text, t, drop, drop, mask, training=True, cp=cp)
+    (y * torch.as_tensor(f["target"]) * mask[..., None]).sum().backward()
+    out["dit_ring_grads"] = _np_tree(tree_map(lambda t: t.grad, params))
     out["dryrun"] = dryrun_rank(rank, world)
     _dump(out, out_dir, "ring", rank)
 

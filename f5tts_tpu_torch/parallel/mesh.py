@@ -36,11 +36,12 @@ class Axis:
     ranks: tuple[int, ...]
     group: object = None
 
-    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum ``t`` over the axis, in place; returns ``t``. A failed
-        collective raises."""
+    def all_reduce(self, t: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
+        """Reduce ``t`` over the axis in place, a sum unless ``op`` says
+        otherwise (``dist.ReduceOp.MAX``: gloo and NCCL take it on fp32, and a
+        sum on int32); returns ``t``. A failed collective raises."""
         if self.size > 1:
-            dist.all_reduce(t, group=self.group)
+            dist.all_reduce(t, op=op, group=self.group)
         return t
 
     def all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:

@@ -595,3 +595,63 @@ def test_conv_pos_kernel_without_a_mask(dev, n):
     assert t_conv.conv_pos.launches == before + 1
     ref = t_conv.conv_pos_plain(x.float(), w1.float(), b1.float(), w2.float(), b2.float())
     assert float((out.float() - ref).abs().max()) < 3e-2
+
+
+# kernel 5 on the tensor-parallel serving path: a given row abs-max and the raw int32 accumulators, on both paths
+# (the TP 2 shapes of F5-TTS Base at M 4096, and M 16384 on the fused path), and the two companion kernels
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", [(4096, 512, 1024), (4096, 1024, 1024), (16384, 512, 1024), (333, 1024, 208)])
+def test_quant_matmul_given_amax_and_raw_modes_are_bit_equal_to_plain(dev, dtype, m, k, n):
+    x, w_q, s_w = _quant_case(dev, dtype, m, k, n)
+    w_qt = t_quant.kernel_layout(w_q)
+    amax = x.float().abs().amax(-1) * 1.5  # larger than each row's own, as a K-shard sees the whole row's
+    floors = dict(amax_floor=0.0, scale_floor=1e-8)
+    for streamed in (False, True):
+        p = t_quant.make_plan(m, k, n, streamed, 2)
+        raw = t_quant.launch_plan(x, w_qt, s_w, None, p, **floors, amax=amax, raw=True)
+        scaled = t_quant.launch_plan(x, w_qt, s_w, None, p, **floors, amax=amax)
+        torch.cuda.synchronize()
+        assert raw.dtype == torch.int32 and raw.shape == (m, n)
+        assert torch.equal(raw, t_quant.quant_matmul_plain(x, w_q, s_w, amax=amax, raw=True, **floors)), streamed
+        assert torch.equal(scaled, t_quant.quant_matmul_plain(x, w_q, s_w, amax=amax, **floors)), streamed
+    before = t_quant.quant_matmul.launches
+    out = t_quant.quant_matmul(x, w_q, s_w, w_qt=w_qt, amax=amax, raw=True, **floors)
+    assert t_quant.quant_matmul.launches == before + 1 and torch.equal(out, raw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_row_parallel_kernels_compose_to_the_whole_linear(dev, dtype):
+    """``row_amax``, the shards' raw products summed, and ``rescale_rows``
+    with the bias: bit-equal to their plain versions and to ``quant_matmul``
+    of the whole K (one launch each)."""
+    m, k, n = 4096, 1024, 1024
+    x, w_q, s_w = _quant_case(dev, dtype, m, k, n)
+    b = torch.randn((n,), generator=torch.Generator().manual_seed(12)).to(dev, dtype)
+    floors = dict(amax_floor=0.0, scale_floor=1e-8)
+    before = t_quant.row_amax.launches, t_quant.rescale_rows.launches
+    amax = t_quant.row_amax(x)
+    assert torch.equal(amax, t_quant.row_amax_plain(x))
+    acc = sum(t_quant.quant_matmul(x[:, i:i + 512].contiguous(), w_q[i:i + 512].contiguous(), s_w,
+                                   w_qt=t_quant.kernel_layout(w_q[i:i + 512]), amax=amax, raw=True, **floors)
+              for i in (0, 512))
+    y = t_quant.rescale_rows(acc, amax, s_w, b=b, dtype=dtype, **floors)
+    torch.cuda.synchronize()
+    assert (t_quant.row_amax.launches, t_quant.rescale_rows.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(y, t_quant.rescale_rows_plain(acc, amax, s_w, b=b, dtype=dtype, **floors))
+    assert torch.equal(y, t_quant.quant_matmul(x, w_q, s_w, w_qt=t_quant.kernel_layout(w_q), b=b, **floors))
+
+
+@pytest.mark.cuda
+def test_row_parallel_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    x, w_q, s_w = _quant_case(dev, torch.bfloat16, 32, 64, 32)
+    w_qt = t_quant.kernel_layout(w_q)
+    with pytest.raises(ValueError, match="no bias"):
+        t_quant.quant_matmul(x, w_q, s_w, w_qt=w_qt, b=torch.zeros(32, device=dev), raw=True)
+    with pytest.raises(ValueError, match="amax"):
+        t_quant.quant_matmul(x, w_q, s_w, w_qt=w_qt, amax=torch.ones(31, device=dev))
+    with pytest.raises(ValueError, match="multiple of 16"):
+        t_quant.row_amax(x[:, :40].contiguous())
+    with pytest.raises(TypeError):
+        t_quant.rescale_rows(torch.zeros((32, 32), device=dev), torch.ones(32, device=dev), s_w)

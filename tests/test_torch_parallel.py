@@ -15,7 +15,14 @@ one-device steps at rtol 1e-5 (atol 1e-5, a hundredth of the learning rate:
 AdamW's ``g / (|g| + eps)`` magnifies the rounding of gradients near eps;
 Adafactor's key bias, whose gradient is zero up to rounding, within the move
 of its two updates, as ``tests/test_torch_train_extras.py`` holds it); the ring as
-``tests/test_ring_attention.py`` (2e-5 / 1e-5; 3e-4 / 1e-3 for the DiT).
+``tests/test_ring_attention.py`` (2e-5 / 1e-5; 3e-4 / 1e-3 for the DiT). The
+MMDiT under (2, 2) with the DiT's tolerances. Int8 under TP is bit-equal to
+the port's one-device int8 path (integer sums are exact) and within
+``tests/test_torch_quant.py``'s tolerances of the JAX package (a linear rtol
+1e-6, the engine 1e-3 relative L2). The ring's q/k/v gradients within the
+forward's 2e-5 / 1e-5 of ``jax.grad`` through the JAX ring; the ring DiT's
+parameter gradients within 1e-4 relative L2 per leaf (fp32 sums over
+another grouping: measured 4.5e-6).
 """
 
 import dataclasses
@@ -29,10 +36,18 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from f5tts_tpu.engine import engine as j_engine
 from f5tts_tpu.models import cfm as jcfm
 from f5tts_tpu.models import dit as jd
+from f5tts_tpu.models import mmdit as jmm
+from f5tts_tpu.models import modules as jm
 from f5tts_tpu.models import unett as ju
+from f5tts_tpu.models import vocos as jv
 from f5tts_tpu.ops.attention import sdpa_xla
+from f5tts_tpu.ops.mel import MelConfig as JMelConfig
+from f5tts_tpu.parallel.ring_attention import ring_attention as j_ring_attention
+from f5tts_tpu.sampling import euler as je
+from f5tts_tpu.text.tokenizer import Tokenizer as JTokenizer
 from f5tts_tpu.parallel.sharding import dit_param_specs as j_specs
 from f5tts_tpu.parallel.sharding import vocos_param_specs as j_vocos_specs
 from f5tts_tpu_torch.engine.engine import EngineConfig, TTSEngine
@@ -40,6 +55,7 @@ from f5tts_tpu_torch.models import cfm as tcfm
 from f5tts_tpu_torch.models import dit as td
 from f5tts_tpu_torch.models.convert import (dit_params_from_numpy, init_dit_numpy, init_mmdit_numpy,
                                             init_unett_numpy, init_vocos_numpy)
+from f5tts_tpu_torch.models import modules as tm
 from f5tts_tpu_torch.models.mmdit import MMDiTConfig
 from f5tts_tpu_torch.models.unett import UNetTConfig
 from f5tts_tpu_torch.models.vocos import VocosConfig
@@ -227,12 +243,9 @@ def test_local_batch_slice_and_global_batch():
     assert batch["lens"].device.type == "cpu" and batch["lens"].tolist() == [3, 4]
 
 
-def test_int8_and_mmdit_under_tp_raise():
-    mesh = fake_mesh(1, 0, 2, 0)
-    dp, vp = init_dit_numpy(td.DiTConfig(**ENGINE_DIT)), init_vocos_numpy(VocosConfig(**VOC))
-    cfg = EngineConfig(mel=MelConfig(n_mels=20), vocoder=VocosConfig(**VOC), quantization="int8")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.8"):
-        TTSEngine(dp, td.DiTConfig(**ENGINE_DIT), vp, Tokenizer(VOCAB), cfg, device="cpu", mesh=mesh)
+def test_mmdit_under_context_parallelism_raises():
+    """What still raises: the MMDiT with a ``cp`` axis (the JAX MMDiT has no
+    ring path; its joint attention is always ``sdpa_xla``)."""
     from f5tts_tpu_torch.models.convert import params_from_numpy
     from f5tts_tpu_torch.models.mmdit import mmdit_forward
 
@@ -240,9 +253,9 @@ def test_int8_and_mmdit_under_tp_raise():
     params = params_from_numpy(init_mmdit_numpy(mcfg), "cpu")
     x = torch.zeros((1, 16, 8))
     f = torch.zeros((1,), dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.8"):
-        mmdit_forward(params, mcfg, x, x, torch.zeros((1, 4), dtype=torch.int32), torch.zeros(1), f, f,
-                      tp=mesh["model"])
+    cp = fake_mesh(1, 0, 2, 0)["model"]
+    with pytest.raises(NotImplementedError, match="no context-parallel path"):
+        mmdit_forward(params, mcfg, x, x, torch.zeros((1, 4), dtype=torch.int32), torch.zeros(1), f, f, cp=cp)
 
 
 def start_spawn(worker, inputs: dict, tmp, name: str):
@@ -283,7 +296,7 @@ def test_ring_body_over_local_blocks_matches_sdpa():
     the card checks it): row 0 has a wholly masked shard, row 1 no valid key
     at all (every hop's lse is -1e30: the hops weigh alike, as ``sdpa``
     averages every value)."""
-    from f5tts_tpu_torch.parallel.ring_attention import local_transport, ring_body, seq_blocks
+    from f5tts_tpu_torch.parallel.ring_attention import LocalTransport, ring_body, seq_blocks
 
     rng = np.random.default_rng(3)
     q, k, v = (rng.standard_normal((2, 2, 64, 16)).astype(np.float32) for _ in range(3))
@@ -293,10 +306,38 @@ def test_ring_body_over_local_blocks_matches_sdpa():
     tq, tk, tv, tm = (torch.as_tensor(a) for a in (q, k, v, mask))
     kb, vb, mb = seq_blocks(tk, 4, 2), seq_blocks(tv, 4, 2), seq_blocks(tm, 4, 1)
     blocks = list(zip(kb, vb, mb))
-    o = torch.cat([ring_body(seq_blocks(tq, 4, 2)[r], kb[r], vb[r], mb[r], 4, local_transport(blocks, r))
+    o = torch.cat([ring_body(seq_blocks(tq, 4, 2)[r], kb[r], vb[r], mb[r], 4, LocalTransport(blocks, r))
                    for r in range(4)], 2)
     ref = np.asarray(sdpa_xla(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask)))
     np.testing.assert_allclose(o.numpy(), ref, atol=2e-5, rtol=1e-5)
+
+
+def test_ring_backward_over_local_blocks_matches_sdpa():
+    """The ring's backward body driven in one process (as the card checks
+    it): every rank's forward, then its backward over the same rotated blocks
+    with one shared dict of dK/dV accumulators; the gathered dq, dk, dv
+    against plain ``sdpa`` autograd over the whole sequence. Row 0 has a
+    wholly masked shard (its keys' dk and dv are zero in both)."""
+    from f5tts_tpu_torch.ops.attention import sdpa
+    from f5tts_tpu_torch.parallel.ring_attention import LocalTransport, ring_body_bwd, ring_forward, seq_blocks
+
+    rng = np.random.default_rng(4)
+    q, k, v, do = (torch.as_tensor(rng.standard_normal((2, 2, 64, 16)).astype(np.float32)) for _ in range(4))
+    mask = torch.ones((2, 64), dtype=torch.bool)
+    mask[0, 40:] = False
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    (sdpa(*leaves, mask) * do).sum().backward()
+    p = 4
+    qb, kb, vb, mb, dob = (seq_blocks(t, p, 1 if t.ndim == 2 else 2) for t in (q, k, v, mask, do))
+    blocks, shared = list(zip(kb, vb, mb)), {}
+    grads = []
+    for r in range(p):
+        o, lse = ring_forward(qb[r], kb[r], vb[r], mb[r], p, LocalTransport(blocks, r))
+        grads.append(ring_body_bwd(qb[r], kb[r], vb[r], mb[r], o, lse, dob[r], p, LocalTransport(blocks, r, shared)))
+    for i, leaf in enumerate(leaves):
+        got = torch.cat([g[i] for g in grads], 2)
+        np.testing.assert_allclose(got.numpy(), leaf.grad.numpy(), atol=2e-5, rtol=1e-5)
+    assert float(torch.cat([g[1] for g in grads], 2)[0, :, 48:].abs().max()) == 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -332,6 +373,18 @@ def parity(tmp_path_factory):
               "cfg": EngineConfig(mel=MelConfig(n_mels=20), vocoder=VocosConfig(**VOC), compute_dtype="float32",
                                   sampler=serving_default_sampler(steps=2)),
               "text": "Hello tensor parallel world.", "ref": ref_audio, "ref_text": "Hello."}
+    rng8 = np.random.default_rng(9)
+    int8_linear = {"w": rng8.standard_normal((128, 64)).astype(np.float32) * 0.05,
+                   "b": rng8.standard_normal((64,)).astype(np.float32),
+                   "x": rng8.standard_normal((3, 10, 128)).astype(np.float32)}
+    int8_linear["x"][0, 0, 70] = 25.0  # this row's abs-max sits on model rank 2's K-shard alone
+    b8, n8 = 2, 128
+    engine_int8 = {**engine, "cfg": dataclasses.replace(engine["cfg"], quantization="int8"),
+                   "program": (rng8.standard_normal((b8, n8, 20)).astype(np.float32), np.array([30, 45], np.int32),
+                               np.where(np.arange(40)[None] < np.array([[40], [25]]),
+                                        rng8.integers(0, 90, (b8, 40)), -1).astype(np.int32),
+                               np.array([128, 100], np.int32)),
+                   "y0": rng8.standard_normal((b8, n8, 20)).astype(np.float32)}
     ucfg = dict(TINY, depth=2)
     unett_np = init_unett_numpy(UNetTConfig(**ucfg), seed=8)
     inputs = {"tiny": td.DiTConfig(**TINY), "dit_np": dit_np, "fwd_batch": fwd,
@@ -339,7 +392,8 @@ def parity(tmp_path_factory):
               "loss_cfg": tcfm.CFMConfig(model=td.DiTConfig(**TINY, dropout=0.0)),
               "loss_batch": (mel, text, lens), "loss_draws": jax_draws(key, 4, 32, 20, loss_jcfg),
               "trainers": trainers, "train_np": train_np, "train_batches": train_batches(10),
-              "adafactor_batches": adafactor_batches(), "engine": engine,
+              "adafactor_batches": adafactor_batches(), "engine": engine, "int8_linear": int8_linear,
+              "engine_int8": engine_int8,
               "mmdit": {"cfgs": mmdit_cfgs, "np": init_mmdit_numpy(mmdit_cfg, seed=6),
                         "batch": train_batches(13, count=1)[0]}}
     run = start_spawn(dryrun.parity_worker, inputs, tmp, "parity")
@@ -351,7 +405,45 @@ def parity(tmp_path_factory):
         lambda p: jcfm.cfm_loss(p, loss_jcfg, key, jnp.asarray(mel), jnp.asarray(text), jnp.asarray(lens)),
         has_aux=True))(dit_np)
     j.update(loss=float(jloss), masked_frames=int(jaux["masked_frames"]), grads=flat(np_tree(jgrads)))
+
+    mm_np = inputs["mmdit"]["np"]
+    j_mmcfg = jmm.MMDiTConfig(**{k: getattr(mmdit_cfg, k) for k in ("dim", "depth", "heads", "dim_head", "ff_mult",
+                                                                      "mel_dim", "text_num_embeds", "text_max_pos")})
+    j["mmdit_fwd"] = np.asarray(jax.jit(lambda p, *a: jmm.mmdit_forward(p, j_mmcfg, *a, f, f))(
+        mm_np, *(jnp.asarray(a) for a in fwd)))
+    mm_loss_cfg = jcfm.CFMConfig(model=j_mmcfg)
+    (jl, _), jg = jax.jit(jax.value_and_grad(
+        lambda p: jcfm.cfm_loss(p, mm_loss_cfg, key, jnp.asarray(mel), jnp.asarray(text), jnp.asarray(lens)),
+        has_aux=True))(mm_np)
+    j.update(mmdit_loss=float(jl), mmdit_grads=flat(np_tree(jg)))
+
+    jq = jm.quantize_linear_params({"w": jnp.asarray(int8_linear["w"]), "b": jnp.asarray(int8_linear["b"])})
+    j["int8_linear"] = np.asarray(jm._linear_int8(jq, jnp.asarray(int8_linear["x"])))
+    j["int8_engine"] = jax_int8_program(engine_int8)
     return {"inputs": inputs, "outs": run(), "jax": j, "tmp": tmp}
+
+
+def jax_int8_program(e):
+    """The JAX int8 engine's program on one device with explicit noise
+    (``tests/test_torch_quant.py``'s): the generated mel and the wave."""
+    voc = jv.VocosConfig(**VOC)
+    sampler = je.serving_default_sampler(steps=2)
+    eng = j_engine.TTSEngine(e["dit_np"], jd.DiTConfig(**ENGINE_DIT), e["voc_np"], JTokenizer(VOCAB),
+                             j_engine.EngineConfig(mel=JMelConfig(n_mels=20), vocoder=voc, sampler=sampler,
+                                                   compute_dtype="float32", quantization="int8"))
+    n = e["y0"].shape[1]
+
+    @jax.jit
+    def program(dp, vp, cond, cond_lens, text, duration, y0):
+        mel_out = je.sample_cfm(dp, eng.dit_cfg, cond=cond, cond_lens=cond_lens, text=text, duration=duration,
+                                sampler=sampler, y0=y0)
+        idx = (jnp.arange(n)[None, :] + cond_lens[:, None]) % n
+        gen = jnp.take_along_axis(mel_out, idx[..., None], axis=1)
+        gen = jnp.where(jnp.arange(n)[None, :, None] < (duration - cond_lens)[:, None, None], gen, 0.0)
+        return gen, jv.vocos_decode(vp, gen, voc)
+
+    gen, wave = program(eng.dit_params, eng.vocos_params, *(jnp.asarray(a) for a in (*e["program"], e["y0"])))
+    return np.asarray(gen), np.asarray(wave)
 
 
 def one_device_train(inputs, opt: str, batches):
@@ -449,6 +541,78 @@ def test_mmdit_trains_data_parallel(parity):
             np.testing.assert_allclose(got[k], v.detach().numpy(), rtol=1e-5, atol=STEP_ATOL, err_msg=k)
 
 
+def test_mmdit_tp_forward_matches_jax(parity):
+    """The MMDiT at (2, 2): 2 heads a rank, global head 0's flat RoPE on model
+    rank 0 for both streams, ``to_out_c`` column-parallel between its two
+    gathers."""
+    for out in parity["outs"]:
+        np.testing.assert_allclose(out["mmdit_fwd_22"], parity["jax"]["mmdit_fwd"], atol=2e-4, rtol=1e-4)
+
+
+def test_mmdit_dp_tp_loss_and_gradients_match_jax(parity):
+    j = parity["jax"]
+    for out in parity["outs"]:
+        assert abs(out["mmdit_loss_22"] - j["mmdit_loss"]) < 1e-4
+        got = flat(out["mmdit_grads_22"])
+        assert set(got) == set(j["mmdit_grads"])
+        for name, ref in j["mmdit_grads"].items():
+            assert rel_l2(got[name], ref) < 2e-2, name
+
+
+def test_mmdit_trainer_step_under_tp_matches_one_device(parity):
+    inputs = parity["inputs"]["mmdit"]
+    model_cfg, train_cfg = inputs["cfgs"]
+    trainer = Trainer(model_cfg, train_cfg, compute_dtype=torch.float32, device="cpu")
+    state = init_train_state(model_cfg, train_cfg, "cpu", inputs["np"])
+    loss = float(trainer.step(state, inputs["batch"])["loss"])
+    for out in parity["outs"]:
+        np.testing.assert_allclose(out["mmdit_22"]["loss"], loss, rtol=1e-5)
+        got = flat(out["mmdit_22"]["params"])
+        for k, v in tree_leaves(state["params"]):
+            np.testing.assert_allclose(got[k], v.detach().numpy(), rtol=1e-5, atol=STEP_ATOL, err_msg=k)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_row_parallel_int8_linear_is_bit_equal_to_one_device(parity, dtype):
+    """At (1, 4): each rank's K-shard with the whole weight's column scales,
+    the row abs-max all-reduced (row 0's lives on one shard: a shard-local
+    abs-max would quantize that row differently on the other three), the
+    int32 sums all-reduced: bit-equal to the one-device ``_linear_int8``, and
+    in fp32 within 1e-6 of the JAX ``_linear_int8``."""
+    lin = parity["inputs"]["int8_linear"]
+    tdt = getattr(torch, dtype)
+    w, b, x = (torch.as_tensor(lin[k]).to(tdt) for k in ("w", "b", "x"))
+    q = tm.quantize_linear_params({"w": w, "b": b})
+    ref = tm._linear_int8(q, x).float().numpy()
+    shard = q["w_q"].shape[0] // 4
+    for r, out in enumerate(parity["outs"]):
+        got = out["int8_linear"][dtype]
+        np.testing.assert_array_equal(got["y"], ref)
+        np.testing.assert_array_equal(got["s_w"], q["s_w"].numpy())
+        np.testing.assert_array_equal(got["w_q"], q["w_q"][r * shard:(r + 1) * shard].numpy())
+    if dtype == "float32":
+        np.testing.assert_allclose(ref, parity["jax"]["int8_linear"], rtol=1e-6, atol=1e-6)
+    row = x[0, 0].float().abs()  # the other ranks' shards of row 0 peak below the row's abs-max
+    assert int(row.argmax()) == 70 and all(float(row[r * 32:(r + 1) * 32].max()) < float(row.max()) for r in (0, 1, 3))
+
+
+def test_int8_engine_under_tp_is_bit_equal_to_one_device(parity):
+    """``TTSEngine(quantization="int8", mesh=(2, 2))``: sharded, then
+    quantized; its bucket program with explicit noise gives the one-device
+    int8 engine's mel and wave bit for bit, and agrees with the JAX int8
+    engine within ``tests/test_torch_quant.py``'s 1e-3 relative L2."""
+    e = parity["inputs"]["engine_int8"]
+    engine = TTSEngine(e["dit_np"], e["dit_cfg"], e["voc_np"], Tokenizer(e["vocab"]), e["cfg"], device="cpu")
+    with torch.no_grad():
+        gen, wave = engine.bucket_program(*(torch.as_tensor(a) for a in e["program"]), steps=2, cfg_strength=2.0,
+                                          y0=torch.as_tensor(e["y0"]))
+    for out in parity["outs"]:
+        np.testing.assert_array_equal(out["int8_engine"]["gen"], gen.numpy())
+        np.testing.assert_array_equal(out["int8_engine"]["wave"], wave.numpy())
+    j_gen, j_wave = parity["jax"]["int8_engine"]
+    assert rel_l2(gen.numpy(), j_gen) < 1e-3 and rel_l2(wave.numpy(), j_wave) < 1e-3
+
+
 def test_train_cli_model_parallel(parity):
     assert all(o["cli"] == {"step": 3, "finite": True} for o in parity["outs"])
 
@@ -474,14 +638,31 @@ def ring(tmp_path_factory):
     text = rng.integers(0, 30, (2, 16)).astype(np.int32)
     t = np.array([0.3, 0.7], np.float32)
     fmask = np.arange(64)[None, :] < np.array([64, 48])[:, None]
-    inputs = {"qkv": qkv, "mask": mask,
-              "fwd": {"cfg": td.DiTConfig(**RING_DIT), "np": params, "inputs": (x, text, t, fmask)}}
+    upstream = rng.standard_normal((b, h, n, d)).astype(np.float32)
+    target = rng.standard_normal((2, 64, 20)).astype(np.float32)
+    inputs = {"qkv": qkv, "mask": mask, "upstream": upstream,
+              "fwd": {"cfg": td.DiTConfig(**RING_DIT), "np": params, "inputs": (x, text, t, fmask), "target": target}}
     run = start_spawn(dryrun.ring_worker, inputs, tmp, "ring")
     q, k, v = (jnp.asarray(a) for a in qkv)
     f = jnp.zeros((2,), bool)
     ref = {"ring": np.asarray(sdpa_xla(q, k, v, None)), "ring_masked": np.asarray(sdpa_xla(q, k, v, jnp.asarray(mask))),
            "dit": np.asarray(jd.dit_forward(params, cfg, jnp.asarray(x), jnp.asarray(x), jnp.asarray(text),
                                             jnp.asarray(t), f, f, jnp.asarray(fmask)))}
+    mesh = jax.sharding.Mesh(np.asarray(jax.devices()[:4]), ("cp",))
+    g = jnp.asarray(upstream)
+    ring_grad = jax.jit(jax.grad(lambda q_, k_, v_, m: jnp.sum(j_ring_attention(q_, k_, v_, m, mesh=mesh) * g),
+                                 argnums=(0, 1, 2)))
+    for name, m in (("ring_grads", None), ("ring_masked_grads", jnp.asarray(mask))):
+        ref[name] = [np.asarray(a) for a in ring_grad(q, k, v, m)]
+    ring_cfg = dataclasses.replace(cfg, attn_impl="ring")
+    jfm = jnp.asarray(fmask)
+
+    def dit_loss(p):
+        y = jd.dit_forward(p, ring_cfg, jnp.asarray(x), jnp.asarray(x), jnp.asarray(text), jnp.asarray(t), f, f, jfm)
+        return jnp.sum(y * jnp.asarray(target) * jfm[..., None])
+
+    with jax.sharding.set_mesh(mesh):
+        ref["dit_ring_grads"] = flat(np_tree(jax.jit(jax.grad(dit_loss))(jax.tree.map(jnp.asarray, params))))
     return {"inputs": inputs, "outs": run(), "ref": ref}
 
 
@@ -494,6 +675,32 @@ def test_ring_attention_matches_sdpa(ring, with_mask):
         for bi in range(2):
             np.testing.assert_allclose(out[name][bi, :, valid[bi]], ring["ref"][name][bi, :, valid[bi]],
                                        atol=2e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_ring_attention_gradients_match_jax(ring, with_mask):
+    """dq, dk, dv of ``sum(ring_attention(q, k, v) * g)`` against ``jax.grad``
+    through the JAX ring on a cp-4 CPU mesh; with the mask, row 0's last
+    shard is wholly masked (its keys' dk and dv are zero)."""
+    name = "ring_masked_grads" if with_mask else "ring_grads"
+    for out in ring["outs"]:
+        for got, ref in zip(out[name], ring["ref"][name]):
+            np.testing.assert_allclose(got, ref, atol=2e-5, rtol=1e-5)
+    if with_mask:
+        assert float(np.abs(ring["outs"][0][name][1][0, :, 48:]).max()) == 0.0
+
+
+def test_ring_dit_training_gradients_match_jax(ring):
+    """The gradient of a fixed linear loss over the valid frames of the ring
+    DiT (``training=True``: checkpointed blocks, the ring's forward run again
+    in the recompute) with the parameters as leaves, against ``jax.grad`` of
+    the JAX ring DiT under ``jax.sharding.set_mesh``."""
+    ref = ring["ref"]["dit_ring_grads"]
+    for out in ring["outs"]:
+        got = flat(out["dit_ring_grads"])
+        assert set(got) == set(ref)
+        for name, want in ref.items():
+            assert rel_l2(got[name], want) < 1e-4, name
 
 
 def test_dit_forward_with_ring_attention(ring):

@@ -221,6 +221,61 @@ def test_quant_matmul_wrapper_passes_the_bias_to_the_plain_version_on_the_cpu():
     assert torch.equal(out, tq.quant_matmul_plain(x, torch.as_tensor(wq), torch.as_tensor(sw)) + b)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_row_parallel_entry_points_compose_to_the_whole_linear(dtype):
+    """The tensor-parallel entry points on the CPU (their plain versions): the
+    row abs-max of the whole row (``row_amax``), each K-shard's int32
+    accumulators quantized by it (``quant_matmul(amax=, raw=True)``), their
+    sum, and ``rescale_rows`` with the bias give ``quant_matmul`` of the whole
+    K bit for bit, under both floors; in fp32 also the JAX ``_linear_int8``
+    to rtol 1e-6. A shard-local abs-max gives other accumulators (row 0's
+    abs-max lives on one shard)."""
+    rng = np.random.default_rng(13)
+    tdt = getattr(torch, dtype)
+    x = torch.as_tensor(rng.standard_normal((24, 256)).astype(np.float32)).to(tdt)
+    x[0, 200] = 30.0
+    x[1] = 1e-7  # under 1.27e-6: the two floors part here
+    wq, sw = _quantized_weight(rng, 256, 96)
+    w_q, s_w = torch.as_tensor(wq), torch.as_tensor(sw)
+    b = torch.as_tensor(rng.standard_normal((96,)).astype(np.float32)).to(tdt)
+    amax = tq.row_amax(x)
+    assert amax.dtype == torch.float32 and torch.equal(amax, x.float().abs().amax(-1))
+    for floors in (dict(amax_floor=1e-6, scale_floor=0.0), dict(amax_floor=0.0, scale_floor=1e-8)):
+        shards = [tq.quant_matmul(x[:, i:i + 64].contiguous(), w_q[i:i + 64], s_w, amax=amax, raw=True, **floors)
+                  for i in range(0, 256, 64)]
+        assert all(a.dtype == torch.int32 for a in shards)
+        acc = sum(shards)
+        assert torch.equal(acc, tq.quant_matmul(x, w_q, s_w, amax=amax, raw=True, **floors))
+        y = tq.rescale_rows(acc, amax, s_w, b=b, dtype=tdt, **floors)
+        assert y.dtype == tdt and torch.equal(y, tq.quant_matmul(x, w_q, s_w, b=b, **floors))
+        local = tq.quant_matmul(x[:, :64].contiguous(), w_q[:64], s_w, raw=True, **floors)
+        assert not torch.equal(local[0], shards[0][0])
+    if dtype == "float32":
+        jq = {"w_q": jnp.asarray(wq), "s_w": jnp.asarray(sw), "b": jnp.asarray(b.numpy())}
+        np.testing.assert_allclose(y.numpy(), np.asarray(jm._linear_int8(jq, jnp.asarray(x.numpy()))), rtol=1e-6,
+                                   atol=1e-6)
+
+
+def test_given_abs_max_sets_the_row_scale():
+    """``quant_matmul(amax=)`` quantizes each row by the given abs-max (a
+    larger one than the row's own, as a row-parallel shard sees), spelled out
+    in numpy; the raw output takes no bias."""
+    rng = np.random.default_rng(14)
+    x = rng.standard_normal((8, 64)).astype(np.float32)
+    wq, sw = _quantized_weight(rng, 64, 32)
+    amax = (np.abs(x).max(-1) * np.linspace(1.0, 3.0, 8)).astype(np.float32)
+    acc = tq.quant_matmul(torch.as_tensor(x), torch.as_tensor(wq), torch.as_tensor(sw), amax=torch.as_tensor(amax),
+                          raw=True, amax_floor=0.0, scale_floor=1e-8).numpy()
+    sx = np.maximum(amax / np.float32(127.0), np.float32(1e-8)).astype(np.float32)
+    want = np.round(x / sx[:, None]).astype(np.int64) @ wq.astype(np.int64)
+    np.testing.assert_array_equal(acc, want)
+    y = tq.rescale_rows_plain(torch.as_tensor(acc), torch.as_tensor(amax), torch.as_tensor(sw), amax_floor=0.0,
+                              scale_floor=1e-8).numpy()
+    np.testing.assert_array_equal(y, (want.astype(np.float32) * sx[:, None]) * sw)
+    with pytest.raises(ValueError, match="no bias"):
+        tq.quant_matmul(torch.as_tensor(x), torch.as_tensor(wq), torch.as_tensor(sw), b=torch.zeros(32), raw=True)
+
+
 @pytest.fixture(scope="module")
 def tiny():
     cfg = jd.DiTConfig(**TINY)
