@@ -7,6 +7,7 @@
     python3 chip_smoke.py --distill-only  # the build and phase 17 alone (no result lines)
     python3 chip_smoke.py --parallel-only  # the build and phase 18 alone (no result lines)
     python3 chip_smoke.py --ar-only  # the build and phase 19 alone (no result lines)
+    python3 chip_smoke.py --leftovers-only  # the build, the F5 bench and phase 20 (no result lines)
 
 Phases, each of which fails the run (non-zero exit) on any error:
 
@@ -236,6 +237,24 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``ARTTSEngine.synthesize_batch`` at batch 8, ``text_pad`` 256, 1024
    frames, bf16 (lengths, audio-s/s over the median of 3 calls, ms and
    launches per position, a device-only profile); no kernel launched.
+20. the module leftovers (after phase 19): (a) the fused q/k/v projection:
+   kernel 1 on the head-split thirds of one ``(1024, 3072)`` product (bf16,
+   16 x 1024 frames, row stride 3072) bit-equal to the call on contiguous
+   copies; a bench-geometry solve from the fused tree against the unfused
+   solve from the same noise (mel relative L2), then the bench beside the
+   unfused bench of the same run: exactly 2 library GEMM launches fewer a
+   block (880 a solve), kernels 1 and 2 and the pre-pass exactly as often,
+   both audio-s/s; (b) the native audio library (built at first use from
+   ``f5tts_tpu_torch/csrc/audioops.cpp``): the int16 encode bit-equal to the
+   numpy form, the crossfade bit-equal outside its overlap (and in it for
+   fades of up to 2 samples) and its overlap's difference from
+   ``np.linspace`` printed, one ``synthesize_streaming`` request at Base
+   whose chunk joins go through it (its call count); (c)
+   ``python -m f5tts_tpu_torch.scripts.quality_harness --geometry base
+   --dtype bf16 --prompts 4 --configs base,anchor64,ralston8,mid8,truth``
+   in-process, its cache and output in a temporary directory: kernels 1 and
+   2 exactly 22 + 22 + 1 per DiT forward, every row finite with its
+   ``n_forwards``, the seconds it took.
 
 The last lines are the card's name and power limit, one ``{"kernels": [...]}``
 JSON line and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -1589,6 +1608,15 @@ BENCH_FAMILIES = (("flash_attention", ("flash_wgmma", "flash_fwd")), ("rope_rows
                   ("quant_prepass", ("quantize_rows_kernel",)), ("bf16_add", ("CUDAFunctor_add<c10::BFloat16>",)))
 
 
+def _bench_inputs(dev, batch: int = 8, n: int = 1024, ref_frames: int = 128, text_pad: int = 512):
+    """The bench geometry's prompts: random cond mels, text ids, full durations, seeds 0..batch-1."""
+    rng = np.random.default_rng(0)
+    return (torch.as_tensor(rng.standard_normal((batch, n, 100)), dtype=torch.float32, device=dev),
+            torch.full((batch,), ref_frames, dtype=torch.int32, device=dev),
+            torch.as_tensor(rng.integers(0, 90, (batch, text_pad)), dtype=torch.int32, device=dev),
+            torch.full((batch,), n, dtype=torch.int32, device=dev), np.arange(batch))
+
+
 def bench_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card: str, quantization: str = "none",
                 backbone: str = "F5-TTS", fns: dict | None = None) -> dict:
     """One bucket program at the bench geometry, profiled once and timed three
@@ -1603,12 +1631,7 @@ def bench_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card: str, quantizat
     engine = TTSEngine(dit_np, dit_cfg, voc_np, tok, EngineConfig(
         vocoder=voc_cfg, duration_buckets=(n,), batch_buckets=(batch,), text_pad=text_pad,
         quantization=quantization), device=dev, **(fns or {}))
-    rng = np.random.default_rng(0)
-    cond = torch.as_tensor(rng.standard_normal((batch, n, 100)), dtype=torch.float32, device=dev)
-    cond_lens = torch.full((batch,), ref_frames, dtype=torch.int32, device=dev)
-    text = torch.as_tensor(rng.integers(0, 90, (batch, text_pad)), dtype=torch.int32, device=dev)
-    duration = torch.full((batch,), n, dtype=torch.int32, device=dev)
-    seeds = np.arange(batch)
+    cond, cond_lens, text, duration, seeds = _bench_inputs(dev, batch, n, ref_frames, text_pad)
 
     def run():
         _, wave = engine.bucket_program(cond, cond_lens, text, duration, seeds, steps=steps, cfg_strength=2.0)
@@ -3927,7 +3950,197 @@ def parallel_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card: str, launch
     log(f"phase 18 (multi-device) took {time.perf_counter() - t_phase:.1f} s on {card}")
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the module leftovers
+# ---------------------------------------------------------------------------
+
+FUSED_MEL_REL = 5e-2  # fused vs unfused bf16 solve from the same noise, relative L2 (the script's bf16 solve tolerance)
+HARNESS_CONFIGS = ("base", "anchor64", "ralston8", "mid8", "truth")
+
+
+def _fused_qkv_check(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card: str, launches: dict, bf16_bench) -> None:
+    """(a) the fused q/k/v projection: kernel 1 on its views, a solve against
+    the unfused one, the bench beside the unfused bench."""
+    from f5tts_tpu_torch.engine.engine import EngineConfig, TTSEngine
+    from f5tts_tpu_torch.models.modules import fuse_attention_qkv
+    from f5tts_tpu_torch.ops.kernels.conv_pos import conv_pos
+    from f5tts_tpu_torch.ops.kernels.flash_attention import flash_attention, rope_rows
+    from f5tts_tpu_torch.ops.rope import rotary_freqs
+
+    fused_np = {**dit_np, "blocks": {**dit_np["blocks"], "attn": fuse_attention_qkv(dit_np["blocks"]["attn"])}}
+    b, n, h, d = 16, 1024, dit_cfg.heads, dit_cfg.dim_head
+    g = torch.Generator(device="cpu").manual_seed(20)
+    x = torch.randn((b, n, dit_cfg.dim), generator=g).to(dev, torch.bfloat16)
+    w = torch.as_tensor(fused_np["blocks"]["attn"]["qkv"]["w"][0], device=dev).to(torch.bfloat16)
+    q, k, v = ((x @ w).chunk(3, -1)[i].reshape(b, n, h, d).transpose(1, 2) for i in range(3))
+    check(q.stride() == k.stride() == v.stride() == (n * 3 * h * d, d, 3 * h * d, 1),
+          f"the fused thirds' head-split strides {q.stride()}")
+    lens = torch.randint(n // 2, n + 1, (b,), generator=g).to(dev)
+    mask = torch.arange(n, device=dev)[None, :] < lens[:, None]
+    freqs = torch.as_tensor(rotary_freqs(n, d), device=dev)
+    out = flash_attention(q, k, v, mask, rope_freqs=freqs)
+    dense = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), mask, rope_freqs=freqs)
+    check(torch.equal(out, dense), "flash_attention on the fused product's views differs from the contiguous call")
+    log(f"(a) fused q/k/v: kernel 1 on the head-split thirds of one (1024, 3072) product (strides {q.stride()}, "
+        f"bf16, {b} x {n}, head-0 RoPE, key mask) is bit-equal to the call on contiguous copies")
+    del x, w, q, k, v, out, dense
+
+    # one solve from the same noise at the bench geometry, fused against unfused
+    cfg = EngineConfig(vocoder=voc_cfg, duration_buckets=(1024,), batch_buckets=(8,), text_pad=512)
+    cond, cond_lens, text, duration, seeds = _bench_inputs(dev)
+    mels = []
+    for tree in (dit_np, fused_np):
+        engine = TTSEngine(tree, dit_cfg, voc_np, tok, cfg, device=dev)
+        with torch.no_grad():
+            mels.append(engine.bucket_program(cond, cond_lens, text, duration, seeds, steps=10, cfg_strength=2.0)[0])
+        del engine
+    gen = slice(0, 1024 - 128)  # the program rolls the generated frames to the origin
+    rel = float(torch.linalg.vector_norm((mels[1] - mels[0])[:, gen].float())
+                / torch.linalg.vector_norm(mels[0][:, gen].float()))
+    log(f"(a) fused against unfused solve from the same noise (bench geometry, Ralston NFE 20, CFG 2, bf16): "
+        f"generated mel relative L2 {rel:.3e} (tol {FUSED_MEL_REL})")
+    check(np.isfinite(rel) and rel < FUSED_MEL_REL, f"the fused solve's mel is off by {rel}")
+    del mels
+    torch.cuda.empty_cache()
+
+    wrappers = {"flash_attention": flash_attention, "rope_rows": rope_rows, "conv_pos": conv_pos}
+    if bf16_bench is None:
+        bf16_bench = bench_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card)
+    for wr in wrappers.values():
+        wr.launches = 0
+    fused_bench = bench_phase(dev, dit_cfg, voc_cfg, fused_np, voc_np, tok, card, backbone="F5-TTS fused q/k/v")
+    for name, wr in wrappers.items():
+        launches[name]["bench_fused"] = wr.launches
+    forwards = 5 * 20  # a warm call, the profiled call and three timed ones, 20 forwards each
+    want = {"flash_attention": dit_cfg.depth * forwards, "rope_rows": dit_cfg.depth * forwards, "conv_pos": forwards}
+    check({name: wr.launches for name, wr in wrappers.items()} == want,
+          f"fused bench launch counts {({name: wr.launches for name, wr in wrappers.items()})}, want {want}")
+    fams = ("flash_attention", "rope_rows", "conv_pos")
+    kern_u, kern_f = ({f: bench["launch_counts"].get(f, 0) for f in fams} for bench in (bf16_bench, fused_bench))
+    gemm_u, gemm_f = (bench["launch_counts"].get("gemm", 0) for bench in (bf16_bench, fused_bench))
+    moved = 2 * dit_cfg.depth * 20  # two of every block's three projections, 20 forwards
+    log(f"(a) fused q/k/v against unfused at the bench geometry on {card}: {fused_bench['audio_s_per_s']:.2f} against "
+        f"{bf16_bench['audio_s_per_s']:.2f} audio-s/s (median solve {fused_bench['median_s']:.4f} against "
+        f"{bf16_bench['median_s']:.4f} s); library GEMM launches per solve {gemm_f} against {gemm_u} ({gemm_u - gemm_f} "
+        f"fewer, want {moved}), GEMM device ms {fused_bench['device_ms'].get('gemm', 0.0):.1f} against "
+        f"{bf16_bench['device_ms'].get('gemm', 0.0):.1f}; kernels per solve {kern_f} against {kern_u}")
+    check(gemm_u - gemm_f == moved, f"the fused solve launched {gemm_u - gemm_f} fewer library GEMMs, want {moved}")
+    check(kern_f == kern_u == {"flash_attention": dit_cfg.depth * 20, "rope_rows": dit_cfg.depth * 20, "conv_pos": 20},
+          f"kernel launches per solve: fused {kern_f}, unfused {kern_u}")
+
+
+def _native_audio_check(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, launches: dict, t_script: float) -> None:
+    """(b) the native audio library: the build, bit equality with the numpy
+    forms, a streaming request through its crossfade."""
+    from f5tts_tpu_torch.audio import native
+    from f5tts_tpu_torch.engine.engine import EngineConfig, TTSEngine
+
+    t0 = time.perf_counter()
+    native.load()
+    built_now = os.path.getmtime(native.LIBRARY) >= t_script
+    check(os.path.dirname(native.LIBRARY) == os.path.join(HERE, "f5tts_tpu_torch", "_build")
+          and os.path.getmtime(native.LIBRARY) >= os.path.getmtime(native.SOURCE),
+          "the native audio library is not the build of the checkout's source")
+    log(f"(b) native audio library {os.path.relpath(native.LIBRARY, HERE)} from "
+        f"{os.path.relpath(native.SOURCE, HERE)}: {'built in this run' if built_now else 'built before this run'}, "
+        f"loaded in {time.perf_counter() - t0:.3f} s")
+    rng = np.random.default_rng(21)
+    ks = np.arange(-32767, 32767, 7)
+    ties = ((ks + 0.5) / 32767).astype(np.float32)
+    ties = ties[(ties * np.float32(32767.0)) % 1 == 0.5]
+    x = np.concatenate([rng.uniform(-1.5, 1.5, 24000 * 30).astype(np.float32), ties])
+    t0 = time.perf_counter()
+    pcm = native.encode_pcm16(x)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = native.encode_pcm16_plain(x)
+    t_plain = time.perf_counter() - t0
+    check(np.array_equal(pcm, plain), "the native int16 encode differs from the numpy form")
+    log(f"(b) encode_pcm16 on {len(x)} samples ({len(ties)} exact .5 ties, clipping): bit-equal to the numpy form; "
+        f"{t_native * 1e3:.2f} ms against numpy's {t_plain * 1e3:.2f} ms (host clock)")
+    a, bb = rng.standard_normal(48000).astype(np.float32), rng.standard_normal(36000).astype(np.float32)
+    for n_fade in (0, 1, 2, 3600):
+        got, want = native.crossfade_pair(a, bb, n_fade), native.crossfade_pair_plain(a, bb, n_fade)
+        head, tail = slice(0, len(a) - n_fade), slice(len(a), None)
+        check(len(got) == len(want) and np.array_equal(got[head], want[head]) and np.array_equal(got[tail], want[tail])
+              and (n_fade > 2 or np.array_equal(got, want)), f"native crossfade, fade {n_fade}: differs from numpy")
+        diff = float(np.abs(got - want).max())
+        log(f"(b) crossfade_pair, fade {n_fade}: outside the overlap bit-equal to numpy; in it max abs difference "
+            f"from np.linspace's fades {diff:.3e} (the C loop takes i / (n - 1) and 1 - i / (n - 1))")
+
+    from f5tts_tpu_torch.ops.kernels.conv_pos import conv_pos
+    from f5tts_tpu_torch.ops.kernels.flash_attention import flash_attention, rope_rows
+
+    engine = TTSEngine(dit_np, dit_cfg, voc_np, tok, EngineConfig(vocoder=voc_cfg), device=dev)
+    solves = _count_solves(engine)
+    ref, ref_text = synthetic_ref(3.0, 130.0, 22), "A reference clip for the streamed request."
+    text = ("A streamed request hands back each chunk as its solve ends, joined by the native crossfade. " * 4).strip()
+    wrappers = {"flash_attention": flash_attention, "rope_rows": rope_rows, "conv_pos": conv_pos}
+    for wr in (*wrappers.values(), native.crossfade_pair):
+        wr.launches = 0
+    t0 = time.perf_counter()
+    segments = list(engine.synthesize_streaming(text, ref, 24000, ref_text, seed=23))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    forwards = sum(f for f, _ in solves)
+    got = {name: wr.launches for name, wr in wrappers.items()}
+    want = {"flash_attention": dit_cfg.depth * forwards, "rope_rows": dit_cfg.depth * forwards, "conv_pos": forwards}
+    joins = native.crossfade_pair.launches
+    log(f"(b) synthesize_streaming: {len(segments)} segments in {wall:.3f} s, solves (forwards, rows) {solves}; "
+        f"native crossfade calls {joins} (want {len(solves) - 1}: one per chunk join); launches {got} (want {want})")
+    check(len(solves) > 1 and joins == len(solves) - 1, "the streamed chunks were not joined by the native crossfade")
+    check(got == want, f"streaming launches {got}, want {want}")
+    check(all(np.isfinite(s_).all() for s_ in segments) and sum(len(s_) for s_ in segments) > 0,
+          "streamed segments not finite")
+    for name in wrappers:
+        launches[name]["stream_native"] = got[name]
+    del engine
+    torch.cuda.empty_cache()
+
+
+def _harness_check(launches: dict) -> None:
+    """(c) the quality harness at Base, bf16, 4 prompts, in-process."""
+    import tempfile
+
+    from f5tts_tpu_torch.sampling.euler import EVALS_PER_STEP
+    from f5tts_tpu_torch.scripts import quality_harness as qh
+
+    depth = qh.DiTConfig.base().depth
+    calls = sum(qh.CONFIGS[n].steps * EVALS_PER_STEP[qh.CONFIGS[n].method] for n in HARNESS_CONFIGS)  # one 2b pair each
+    want = {"flash_attention": depth * calls, "rope_rows": depth * calls, "conv_pos": calls}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--geometry", "base", "--dtype", "bf16", "--prompts", "4", "--configs", ",".join(HARNESS_CONFIGS),
+                "--out", os.path.join(tmp, "quality.json"), "--solve-cache", os.path.join(tmp, "cache"),
+                "--device", "cuda"]
+        result = _launched(f"(c) quality harness at Base ({calls} DiT forwards of 8 rows)", lambda: qh.main(argv), want)
+    secs = time.perf_counter() - t0
+    for name, n in want.items():
+        launches[name]["quality_harness"] = n
+    rows = result["rows"]
+    numbers = [v for r in rows for k, v in r.items() if isinstance(v, float)]
+    check([r["name"] for r in rows] == list(HARNESS_CONFIGS) and all(np.isfinite(numbers)),
+          f"harness rows not finite: {rows}")
+    check(all(r["forwards"] == qh.n_forwards(qh.CONFIGS[r["name"]]) for r in rows), "harness forwards")
+    log(f"(c) quality harness at Base (bf16, 4 prompts, {','.join(HARNESS_CONFIGS)}): recipe error to truth "
+        f"{result['base_truth_l2']:.5f}, x recipe-err " + ", ".join(
+            f"{r['name']} {r['vs_recipe_truth_err']:.3f}" for r in rows if "vs_recipe_truth_err" in r)
+        + f"; {secs:.1f} s")
+
+
+def leftovers_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card: str, launches: dict, bf16_bench,
+                    t_script: float) -> None:
+    """Phase 20: (a) the fused q/k/v projection, (b) the native audio ops,
+    (c) the quality harness at Base."""
+    t_phase = time.perf_counter()
+    _fused_qkv_check(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card, launches, bf16_bench)
+    _native_audio_check(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, launches, t_script)
+    _harness_check(launches)
+    log(f"phase 20 (module leftovers) took {time.perf_counter() - t_phase:.1f} s on {card}")
+
+
 def main():
+    t_script = time.time()
     ap = argparse.ArgumentParser()
     ap.add_argument("--serving-only", action="store_true",
                     help="build the kernels and run only the serving phase (no result lines)")
@@ -3939,6 +4152,8 @@ def main():
                     help="build the kernels and run only the multi-device phase (no result lines)")
     ap.add_argument("--ar-only", action="store_true",
                     help="build the kernels and run only the autoregressive leftovers phase (no result lines)")
+    ap.add_argument("--leftovers-only", action="store_true",
+                    help="build the kernels and run only the F5 bench and the module leftovers phase (no result lines)")
     ap.add_argument("--kernels-only", action="store_true",
                     help="build and check the kernels (and run the ablation), skip the engine, bench, int8, "
                          "training, distillation and Parler phases")
@@ -3970,7 +4185,7 @@ def main():
         ar_phase(dev, card, launches, *parler_full_trees())
         log(f"launches {launches}")
         return
-    if args.serving_only or args.backbones_only or args.distill_only or args.parallel_only:
+    if args.serving_only or args.backbones_only or args.distill_only or args.parallel_only or args.leftovers_only:
         from f5tts_tpu_torch.models.convert import init_dit_numpy, init_vocos_numpy
         from f5tts_tpu_torch.models.dit import DiTConfig
         from f5tts_tpu_torch.models.vocos import VocosConfig
@@ -3986,6 +4201,8 @@ def main():
             distill_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card, launches)
         elif args.parallel_only:
             parallel_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card, launches)
+        elif args.leftovers_only:
+            leftovers_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card, launches, None, t_script)
         else:
             f5_bench = bench_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card)
             backbone_phases(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card, launches, f5_bench)
@@ -4015,13 +4232,14 @@ def main():
         train_phase(dev, dit_cfg, TRAIN_SHAPES, tok, card, launches)  # F5-TTS Base, dropout 0.1, kernels
         distill_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card, launches)  # phase 17
         parallel_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card, launches)  # phase 18
-        del dit_np, voc_np
         parler = parler_full_trees()  # indic-parler-tts width and depth, random weights
         parler_phase(dev, card, launches, *parler)
         ar_phase(dev, card, launches, *parler)  # phase 19
         del parler
-        log(f"ablate_attention launches through the engine, int8, serving, training, distillation, Parler and "
-            f"autoregressive phases: "
+        leftovers_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card, launches, bf16_bench, t_script)  # phase 20
+        del dit_np, voc_np
+        log(f"ablate_attention launches through the engine, int8, serving, training, distillation, Parler, "
+            f"autoregressive and module-leftover phases: "
             f"{ablate_attention.launches} (want 0)")
         check(ablate_attention.launches == 0, "the ablation kernel ran on a serving or training path")
     for k in kernels:

@@ -1,5 +1,7 @@
 """WAV read/write on numpy float32 (counterpart of ``f5tts_tpu/audio/io.py``):
-int16 (or float32) PCM out, int16/int32/uint8/float in, channel-mean downmix."""
+int16 (or float32) PCM out, the int16 encode through the native
+``encode_pcm16`` (``audio/native.py``); int16/int32/uint8/float in,
+channel-mean downmix."""
 
 from __future__ import annotations
 
@@ -7,6 +9,8 @@ import io
 
 import numpy as np
 from scipy.io import wavfile
+
+from f5tts_tpu_torch.audio.native import encode_pcm16
 
 
 def read_wav(path_or_bytes) -> tuple[np.ndarray, int]:
@@ -25,11 +29,6 @@ def read_wav(path_or_bytes) -> tuple[np.ndarray, int]:
     if audio.ndim == 2:
         audio = audio.mean(axis=1)
     return audio, int(sr)
-
-
-def encode_pcm16(audio: np.ndarray) -> np.ndarray:
-    """float32 [-1, 1] -> int16 PCM, clipped and rounded to nearest."""
-    return np.rint(np.clip(np.asarray(audio, np.float32), -1.0, 1.0) * np.float32(32767.0)).astype(np.int16)
 
 
 def _encode(audio: np.ndarray, subtype: str) -> np.ndarray:

@@ -1,6 +1,6 @@
 """Reference-audio preprocessing: silence clipping, edge trim, RMS norm,
-resample, and the removal of long silences from a generated wave (the parts
-of ``f5tts_tpu/audio/preprocess.py`` the engine and CLI use, copied so the
+resample, the removal of long silences from a generated wave and
+``save_spectrogram`` (a copy of ``f5tts_tpu/audio/preprocess.py``, so the
 port imports nothing of the JAX package).
 
 Numpy re-implementation of the reference's pydub-based pipeline
@@ -175,6 +175,21 @@ def remove_long_silences(audio: np.ndarray, sr: int, min_silence_ms: int = 1000,
     if not segs:
         return audio[:0]
     return np.concatenate(segs)
+
+
+def save_spectrogram(mel: np.ndarray, path: str) -> None:
+    """Mel ``(frames, n_mels)`` -> PNG (the reference's ``save_spectrogram``);
+    needs matplotlib, imported here."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    plt.figure(figsize=(12, 4))
+    plt.imshow(mel.T, origin="lower", aspect="auto")
+    plt.colorbar()
+    plt.savefig(path)
+    plt.close()
 
 
 def resample(audio: np.ndarray, sr: int, target_sr: int = TARGET_SR) -> np.ndarray:

@@ -1,12 +1,12 @@
 """Checkpoint conversion CLI of the port (counterpart of ``f5tts_tpu/cli/convert.py``):
-a torch checkpoint, or a checkpoint directory of the port's ``Trainer``, to
+a torch checkpoint, or a checkpoint directory of the port's or the JAX ``Trainer`` (orbax), to
 the ``.npz`` params tree that every loader of both packages reads. It writes
 the same keys and arrays as the JAX package's ``f5tpu-convert``, without JAX.
 
     python -m f5tts_tpu_torch.cli.convert --ckpt model_1200000.safetensors --model F5TTS_Base \\
         --vocab vocab.txt --out f5_base.npz
     python -m f5tts_tpu_torch.cli.convert --ckpt runs/ckpts --model F5TTS_Base --vocab vocab.txt \\
-        --out f5_trained.npz                       # a Trainer directory (EMA)
+        --out f5_trained.npz                       # a Trainer directory (EMA), either package's
     python -m f5tts_tpu_torch.cli.convert --vocoder-ckpt pytorch_model.bin --vocoder-out vocos.npz
 """
 

@@ -32,7 +32,10 @@ step batcher's segments included. The vocoder is Vocos, or BigVGAN with
 ``vocoder_type="bigvgan"``; every decode goes through ``self._decode``. With
 ``quantization="int8"`` the DiT blocks' six linears are quantized after the
 dtype cast (W8A8, ``models/dit.py:quantize_dit_params``) and run through the
-``quant_matmul`` kernel.
+``quant_matmul`` kernel. A params tree in the fused q/k/v layout
+(``models/modules.py:fuse_attention_qkv``) serves as it is, one ``qkv``
+product a block; int8 and a mesh refuse it. Waves are joined by the native
+crossfade (``audio/native.py``), streamed chunks included.
 
 Multi-device (``TTSEngine(mesh=...)``, ``parallel/mesh.py``): the backbone is
 sharded over the mesh's ``model`` axis (Megatron, ``parallel/sharding.py``)

@@ -10,6 +10,10 @@ reads the same files and keeps the same tree and layouts (Linear ``w (in,
 out)``, conv ``(k, in/groups, out)``), as torch tensors on a chosen device and
 dtype.
 
+A checkpoint directory of a trainer reads as that tree too
+(``load_trained_checkpoint``): the port's ``torch.save`` steps, or the JAX
+``Trainer``'s orbax steps through ``tensorstore`` (no JAX).
+
 Torch checkpoints (F5-TTS / IndicF5 and E2-TTS ``.pt``/``.ckpt``/
 ``.safetensors``, the MMDiT layout, Vocos and BigVGAN generator state dicts)
 convert to that numpy tree here, array for array what the JAX converters
@@ -70,17 +74,62 @@ def load_params_npz(path: str) -> dict:
     return out
 
 
-def load_trained_checkpoint(directory: str, use_ema: bool = True) -> dict:
+def load_trained_checkpoint(directory: str, use_ema: bool = True, step: int | None = None) -> dict:
     """The EMA params (what is served; the raw params with ``use_ema=False``)
-    of the newest step of a checkpoint directory written by the port's
-    ``Trainer``, as a numpy tree that ``TTSEngine`` takes as it is."""
+    of step ``step`` (the newest by default) of a checkpoint directory of
+    either trainer, as a numpy tree that ``TTSEngine`` takes as it is (bf16
+    leaves widened to fp32). A step directory holding ``default/`` is the JAX
+    ``Trainer``'s orbax state (``_read_orbax``); otherwise it is the port's
+    ``torch.save`` state. Both name their steps by number."""
+    import os
+
     from f5tts_tpu_torch.train.checkpoint import latest_step, restore_state
     from f5tts_tpu_torch.train.tree import tree_map
 
-    step = latest_step(directory)
-    if step is None:
-        raise FileNotFoundError(f"no checkpoint steps under {directory!r}")
-    return tree_map(lambda t: t.float().numpy(), restore_state(directory, step)["ema" if use_ema else "params"])
+    step = latest_step(directory) if step is None else step
+    if step is None or not os.path.isdir(os.path.join(directory, str(step))):
+        raise FileNotFoundError(f"no checkpoint step {'' if step is None else f'{step} '}under {directory!r}")
+    which = "ema" if use_ema else "params"
+    orbax_dir = os.path.join(directory, str(step), "default")
+    if os.path.isdir(orbax_dir):
+        return _read_orbax(orbax_dir, which)
+    return tree_map(lambda t: t.float().numpy(), restore_state(directory, step)[which])
+
+
+def _read_orbax(root: str, which: str) -> dict:
+    """Subtree ``which`` of the orbax ``StandardSave`` state under ``root``
+    (``<step>/default``), read with ``tensorstore`` alone (orbax imports
+    JAX): leaf names from ``_METADATA``'s ``tree_metadata`` (the keys joined
+    with '.'), each leaf a zarr array in the OCDBT store at ``root``. The
+    one-process layout; a multi-host write (``ocdbt.process_N`` per process)
+    is untested."""
+    import json
+    import os
+
+    try:
+        import tensorstore as ts
+    except ImportError as e:
+        raise ImportError("reading a JAX Trainer's orbax checkpoint needs the tensorstore package") from e
+
+    with open(os.path.join(root, "_METADATA"), encoding="utf-8") as f:
+        entries = json.load(f)["tree_metadata"].values()
+    tree: dict = {}
+    for entry in entries:
+        keys = [k["key"] for k in entry["key_metadata"]]
+        if keys[0] != which:
+            continue
+        node = tree
+        for k in keys[1:-1]:
+            node = node.setdefault(k, {})
+        if entry["value_metadata"]["value_type"] == "None":
+            node[keys[-1]] = None
+            continue
+        spec = {"driver": "zarr", "kvstore": {"driver": "ocdbt", "base": f"file://{root}/", "path": ".".join(keys) + "/"}}
+        leaf = ts.open(spec).result().read().result()
+        node[keys[-1]] = leaf.astype(np.float32) if leaf.dtype.name in ("bfloat16", "float16") else leaf
+    if not tree:
+        raise KeyError(f"no {which!r} subtree in the orbax checkpoint at {root!r}")
+    return tree
 
 
 def export_trained_params(directory: str, path: str) -> None:
@@ -428,7 +477,7 @@ def save_f5_safetensors(path: str, params, cfg: DiTConfig) -> None:
 
 def load_f5_checkpoint(path: str, cfg: DiTConfig) -> dict:
     """The DiT params tree of a torch ``.pt``/``.safetensors`` file, an
-    ``.npz`` params tree or a directory of the port's ``Trainer`` (its EMA)."""
+    ``.npz`` params tree or a checkpoint directory of either trainer (its EMA)."""
     import os
 
     if os.path.isdir(path):
@@ -440,7 +489,7 @@ def load_f5_checkpoint(path: str, cfg: DiTConfig) -> dict:
 
 def load_e2_checkpoint(path: str, cfg: UNetTConfig) -> dict:
     """The UNetT params tree of a torch E2-TTS checkpoint, an ``.npz`` params
-    tree or a directory of the port's ``Trainer``."""
+    tree or a checkpoint directory of either trainer."""
     import os
 
     if os.path.isdir(path):
@@ -584,11 +633,28 @@ def ar_params_from_numpy(tree: dict, device, dtype: torch.dtype | None = None) -
 # ---------------------------------------------------------------------------
 
 
+class _NoDraws:
+    """Stands in for the generator of ``_Init(None)``: read-only zero-stride
+    zeros of the asked shape, so nothing is drawn or materialized."""
+
+    @staticmethod
+    def random(shape, dtype=np.float32) -> np.ndarray:
+        return np.broadcast_to(np.zeros((), dtype), shape)
+
+    standard_normal = random
+
+
 class _Init:
-    def __init__(self, seed: int):
-        self.rng = np.random.default_rng(seed)
+    """The JAX initializers' distributions drawn from ``seed``; ``seed=None``
+    draws nothing and gives zero-stride arrays of the same shapes (a tree
+    whose parameters are counted, ``models/dit.py:param_count``)."""
+
+    def __init__(self, seed: int | None):
+        self.rng = np.random.default_rng(seed) if seed is not None else _NoDraws()
 
     def uniform(self, shape, bound: float) -> np.ndarray:
+        if isinstance(self.rng, _NoDraws):
+            return self.rng.random(shape)
         return (self.rng.random(shape, dtype=np.float32) * np.float32(2 * bound) - np.float32(bound))
 
     def linear(self, d_in: int, d_out: int, bias: bool = True, depth: int | None = None) -> dict:
@@ -618,9 +684,10 @@ def _convnext_v2(init: _Init, dim: int, inter: int, depth: int) -> dict:
     }
 
 
-def init_dit_numpy(cfg: DiTConfig, seed: int = 0) -> dict:
+def init_dit_numpy(cfg: DiTConfig, seed: int | None = 0) -> dict:
     """Random DiT params tree (numpy fp32) at any ``DiTConfig`` width, with the
-    JAX ``init_dit`` tree, shapes and init distributions."""
+    JAX ``init_dit`` tree, shapes and init distributions (``seed=None``: the
+    shapes only, see ``_Init``)."""
     init = _Init(seed)
     inner = cfg.heads * cfg.dim_head
     d = cfg.depth
@@ -653,8 +720,9 @@ def init_dit_numpy(cfg: DiTConfig, seed: int = 0) -> dict:
     return params
 
 
-def init_vocos_numpy(cfg: VocosConfig = VocosConfig(), seed: int = 1) -> dict:
-    """Random Vocos params tree (numpy fp32) with the JAX ``init_vocos`` tree."""
+def init_vocos_numpy(cfg: VocosConfig = VocosConfig(), seed: int | None = 1) -> dict:
+    """Random Vocos params tree (numpy fp32) with the JAX ``init_vocos`` tree
+    (``seed=None``: the shapes only, see ``_Init``)."""
     init = _Init(seed)
     L = cfg.num_layers
     return {
@@ -798,9 +866,10 @@ def init_ar_numpy(cfg: ARConfig = ARConfig(), seed: int = 0) -> dict:
     }
 
 
-def init_unett_numpy(cfg: UNetTConfig, seed: int = 0) -> dict:
+def init_unett_numpy(cfg: UNetTConfig, seed: int | None = 0) -> dict:
     """Random UNetT params tree (numpy fp32) with the JAX ``init_unett`` tree
-    and shapes (RMSNorm gains at 1)."""
+    and shapes (RMSNorm gains at 1; ``seed=None``: the shapes only, see
+    ``_Init``)."""
     init = _Init(seed)
     inner = cfg.heads * cfg.dim_head
     half = cfg.depth // 2

@@ -33,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 from f5tts_tpu_torch.models import modules as m
 from f5tts_tpu_torch.ops.kernels.flash_attention import cos_sin_of
 from f5tts_tpu_torch.ops.rope import precompute_freqs_cis, rotary_freqs
+from f5tts_tpu_torch.train.tree import tree_leaves
 
 
 @functools.lru_cache(maxsize=16)
@@ -197,6 +198,11 @@ def dit_forward(
     return m.linear(params["proj_out"], h)
 
 
+def param_count(params) -> int:
+    """Number of parameters in a params tree (numpy or tensor leaves)."""
+    return sum(int(np.prod(t.shape)) for _, t in tree_leaves(params))
+
+
 def quantize_dit_params(params, tp=None):
     """Int8-quantize the hot matmuls (q/k/v/out and feed-forward in/out of all
     blocks, on their stacked depth axis); embeddings, convs, AdaLN and the
@@ -207,6 +213,9 @@ def quantize_dit_params(params, tp=None):
     so every shard is the one-device tree's slice, as the JAX engine
     quantizes its sharded global view."""
     blocks = params["blocks"]
+    if "qkv" in blocks["attn"]:
+        raise ValueError("quantization='int8' takes the to_q/to_k/to_v layout, not the fused qkv projection "
+                         "(fuse_attention_qkv)")
     row_parallel = ("to_out", "out")
     q_blocks = {
         **blocks,

@@ -36,12 +36,20 @@ K-shard, sums them over ``tp`` and rescales once (``_row_parallel_int8``),
 so it equals the one-device linear bit for bit. ``attention(impl="ring")``
 is context-parallel ring attention over the ``cp`` axis
 (``parallel/ring_attention.py``), differentiable for training.
+
+``fuse_attention_qkv`` makes the fused projection layout: one ``qkv``
+linear of width ``3 * inner`` in place of ``to_q``/``to_k``/``to_v``, whose
+output's thirds are strided views (a row stride of ``3 * inner``) that reach
+the kernels with no copy. Off unless a caller builds such a tree; the int8
+quantization and the tensor-parallel specs know only the three projections,
+so they refuse it.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
@@ -223,6 +231,18 @@ def quantize_linear_params(p, tp=None):
     if "b" in p:
         out["b"] = p["b"]
     return out
+
+
+def fuse_attention_qkv(attn_params):
+    """``to_q``/``to_k``/``to_v`` concatenated into one ``(in, 3 * inner)``
+    projection ``qkv`` (bias too, if any); leading (stacked-depth) axes are
+    kept. Numpy or tensor leaves, as given."""
+    q, k, v = (attn_params[name] for name in ("to_q", "to_k", "to_v"))
+    cat = np.concatenate if isinstance(q["w"], np.ndarray) else torch.cat
+    fused = {"w": cat([q["w"], k["w"], v["w"]], -1)}
+    if "b" in q:
+        fused["b"] = cat([q["b"], k["b"], v["b"]], -1)
+    return {"qkv": fused, "to_out": attn_params["to_out"]}
 
 
 def conv1d(p, x, groups: int = 1, padding: int = 0, dilation: int = 1):
@@ -439,9 +459,12 @@ def attention(p, x, heads: int, rope_freqs=None, mask=None, impl: str = "flash",
         if not rope_all_heads and tp.index > 0:  # global head 0 lives on model rank 0
             rope_freqs = rope_cos_sin = None
     x = tp_input(x, tp)
-    q = linear(p["to_q"], x)
-    k = linear(p["to_k"], x)
-    v = linear(p["to_v"], x)
+    if "qkv" in p:  # the fused layout: three strided views of one product
+        q, k, v = linear(p["qkv"], x).chunk(3, -1)
+    else:
+        q = linear(p["to_q"], x)
+        k = linear(p["to_k"], x)
+        v = linear(p["to_v"], x)
     if impl in ("plain", "ring") and rope_freqs is not None and not rope_all_heads:
         q = apply_rotary(q, rope_freqs)
         k = apply_rotary(k, rope_freqs)

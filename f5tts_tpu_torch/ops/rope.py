@@ -22,6 +22,13 @@ def precompute_freqs_cis(dim: int, end: int, theta: float = 10000.0, theta_resca
     return np.concatenate([np.cos(angles), np.sin(angles)], axis=-1).astype(np.float32)
 
 
+def get_pos_embed_indices(start: torch.Tensor, length: int, max_pos: int, scale: float = 1.0) -> torch.Tensor:
+    """Per-row position indices ``start[:, None] + floor(arange(length) * scale)``,
+    clamped to ``max_pos - 1`` (int32)."""
+    steps = (torch.arange(length, dtype=torch.float32, device=start.device)[None, :] * scale).to(torch.int32)
+    return torch.clamp_max(start.to(torch.int32)[:, None] + steps, max_pos - 1)
+
+
 def rotary_freqs(seq_len: int, dim_head: int, theta: float = 10000.0) -> np.ndarray:
     """x-transformers convention: ``(seq_len, dim_head)`` = ``cat([f, f], -1)``
     with ``f[t, j] = t / theta**(2j/dim_head)`` (half-split layout)."""

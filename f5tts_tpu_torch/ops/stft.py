@@ -1,9 +1,11 @@
-"""Inverse STFT for the Vocos head (counterpart of ``f5tts_tpu/ops/stft.py``).
+"""STFT and inverse STFT (counterpart of ``f5tts_tpu/ops/stft.py``).
 
-``torch.istft(center=True)`` semantics: per-frame inverse real DFT (two
-matmuls against a precomputed basis, as the JAX code does), synthesis window,
-overlap-add as ``n_fft/hop`` shifted adds, division by the squared-window
-envelope, ``n_fft//2`` trim at both ends.
+``istft_reim`` is the Vocos head's: ``torch.istft(center=True)`` semantics,
+per-frame inverse real DFT (two matmuls against a precomputed basis, as the
+JAX code does), synthesis window, overlap-add as ``n_fft/hop`` shifted adds,
+division by the squared-window envelope, ``n_fft//2`` trim at both ends.
+``istft`` takes a complex spectrum (the same matmuls, or ``irfft``);
+``stft_complex`` is the analysis side (reflect pad, Hann window, ``rfft``).
 """
 
 from __future__ import annotations
@@ -12,8 +14,9 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from f5tts_tpu_torch.ops.mel import hann_window
+from f5tts_tpu_torch.ops.mel import frame_signal, hann_window
 
 
 def _fold_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
@@ -49,6 +52,35 @@ def _irdft_basis(n_fft: int) -> tuple[np.ndarray, np.ndarray]:
     return (np.cos(ang) * w / n_fft).astype(np.float32), (-np.sin(ang) * w / n_fft).astype(np.float32)
 
 
+def stft_complex(
+    wav: torch.Tensor,  # (b, samples)
+    n_fft: int = 1024,
+    hop_length: int = 256,
+    win_length: int = 1024,
+    center: bool = True,
+) -> torch.Tensor:
+    """Complex STFT ``(b, frames, n_fft//2 + 1)``, frame-major (complex64)."""
+    window = torch.as_tensor(hann_window(win_length), device=wav.device, dtype=wav.dtype)
+    if center:
+        pad = n_fft // 2
+        wav = F.pad(wav.reshape(-1, 1, wav.shape[-1]), (pad, pad), mode="reflect").reshape(*wav.shape[:-1], -1)
+    return torch.fft.rfft((frame_signal(wav, n_fft, hop_length) * window).float(), dim=-1)
+
+
+def _overlap_add(frames: torch.Tensor, hop_length: int, win_length: int, center: bool) -> torch.Tensor:
+    """Windowed ``(b, T, n_fft)`` frames -> the normalized, trimmed wave."""
+    T, n_fft = frames.shape[1:]
+    dev = frames.device
+    frames = frames * torch.as_tensor(hann_window(win_length), device=dev)
+    y = _fold_add(frames, hop_length)
+    env = torch.as_tensor(_window_envelope(T, n_fft, hop_length, win_length), device=dev)
+    y = y / torch.clamp(env, min=1e-11)
+    if center:
+        pad = n_fft // 2
+        y = y[:, pad:-pad]
+    return y
+
+
 def istft_reim(
     re: torch.Tensor,  # (b, T, n_freq)
     im: torch.Tensor,
@@ -60,15 +92,25 @@ def istft_reim(
     """iSTFT from separate real/imag parts -> ``(b, (T-1)*hop)`` for ``center=True``."""
     if n_fft % hop_length:
         raise ValueError("overlap-add needs hop | n_fft")
-    T = re.shape[1]
     dev = re.device
     c, d = _irdft_basis(n_fft)
     frames = re.float() @ torch.as_tensor(c, device=dev) + im.float() @ torch.as_tensor(d, device=dev)
-    frames = frames * torch.as_tensor(hann_window(win_length), device=dev)
-    y = _fold_add(frames, hop_length)
-    env = torch.as_tensor(_window_envelope(T, n_fft, hop_length, win_length), device=dev)
-    y = y / torch.clamp(env, min=1e-11)
-    if center:
-        pad = n_fft // 2
-        y = y[:, pad:-pad]
-    return y
+    return _overlap_add(frames, hop_length, win_length, center)
+
+
+def istft(
+    spec: torch.Tensor,  # complex (b, T, n_fft//2 + 1), frame-major
+    n_fft: int = 1024,
+    hop_length: int = 256,
+    win_length: int = 1024,
+    center: bool = True,
+    use_matmul_idft: bool = True,
+) -> torch.Tensor:
+    """iSTFT of a complex spectrum -> ``(b, (T-1)*hop)`` for ``center=True``:
+    ``istft_reim`` of its parts, or with ``use_matmul_idft=False`` an
+    ``irfft`` per frame."""
+    if use_matmul_idft:
+        return istft_reim(spec.real, spec.imag, n_fft, hop_length, win_length, center)
+    if n_fft % hop_length:
+        raise ValueError("overlap-add needs hop | n_fft")
+    return _overlap_add(torch.fft.irfft(spec, n=n_fft, dim=-1).float(), hop_length, win_length, center)

@@ -28,6 +28,9 @@ def _spec_for(keys: list[str], ndim: int) -> tuple:
         return (None, *s) if stacked else s
 
     matrix = ndim - stacked == 2
+    if "qkv" in keys:  # its column blocks would mix q, k and v
+        raise ValueError("the fused qkv projection (fuse_attention_qkv) has no tensor-parallel spec: "
+                         "shard the to_q/to_k/to_v layout")
     if "attn" in keys:
         if "to_out" in keys:  # row-parallel: w (inner, dim) sharded on inner, bias replicated
             return with_depth("model", None) if matrix else with_depth(None)

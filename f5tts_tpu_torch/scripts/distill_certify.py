@@ -32,100 +32,16 @@ import numpy as np
 import torch
 
 from f5tts_tpu_torch.eval.quality import quality_report
-from f5tts_tpu_torch.models.cfm import CFMConfig, cfm_draws, cfm_loss
-from f5tts_tpu_torch.models.convert import init_dit_numpy, load_params_npz, params_from_numpy, save_params_npz
+from f5tts_tpu_torch.models.convert import load_params_npz, params_from_numpy, save_params_npz
 from f5tts_tpu_torch.models.dit import DiTConfig
-from f5tts_tpu_torch.sampling.euler import EVALS_PER_STEP, SamplerConfig, sample_cfm, sample_noise_from_seeds
+from f5tts_tpu_torch.sampling.euler import SamplerConfig, sample_cfm, sample_noise_from_seeds
+from f5tts_tpu_torch.scripts.quality_harness import (CONFIGS, TINY, build_prompts, n_forwards,  # noqa: F401
+                                                      structured_toy_batch, toy_field)
 from f5tts_tpu_torch.train.distill import DistillConfig, deepen_student, distill, student_sampler
-from f5tts_tpu_torch.train.trainer import adamw_apply, init_opt_state
-from f5tts_tpu_torch.train.tree import tree_leaves, tree_map
+from f5tts_tpu_torch.train.tree import tree_map
 from f5tts_tpu_torch.utils.device import resolve_device
 
-# the quality harness's tiny geometry and its two reference solves (scripts/quality_harness.py)
-TINY = DiTConfig(dim=64, depth=4, heads=2, dim_head=32, ff_mult=2, mel_dim=20, text_num_embeds=32, text_dim=32,
-                 conv_layers=2)
-CONFIGS: dict[str, SamplerConfig] = {
-    "base": SamplerConfig(steps=32, cfg_strength=2.0, sway_sampling_coef=-1.0),
-    "truth": SamplerConfig(steps=512, cfg_strength=2.0, sway_sampling_coef=-1.0),
-}
 SEGMENT_STEPS = 64  # a long solve runs as segments of this many knots
-
-
-def structured_toy_batch(rng, cfg: DiTConfig, batch: int, n: int, frames_per_token: int = 8):
-    """Synthetic text -> mel data with a learnable mapping: each token id paints
-    a fixed spectral pattern over its frame span (plus small noise), so a few
-    hundred CFM steps give a smooth trained flow field."""
-    patterns = np.random.default_rng(0).standard_normal((cfg.text_num_embeds, cfg.mel_dim)) * 0.8 - 1.0
-    nt = n // frames_per_token
-    text = rng.integers(0, cfg.text_num_embeds, (batch, nt)).astype(np.int32)
-    mel = np.repeat(patterns[text], frames_per_token, axis=1)[:, :n]
-    mel = mel + rng.standard_normal(mel.shape) * 0.05
-    lens = rng.integers(n // 2, n + 1, (batch,)).astype(np.int32)
-    return mel.astype(np.float32), text, lens
-
-
-def toy_train(params, cfg: DiTConfig, steps: int, batch: int = 8, n: int = 128, log=print):
-    """``steps`` of the CFM loss with Adam at 3e-4 (no clip, no weight decay) on
-    ``structured_toy_batch`` data; updates the params (tensors) in place."""
-    ccfg = CFMConfig(model=cfg)
-    leaves = [t for _, t in tree_leaves(params)]
-    dev = leaves[0].device
-    opt_state = init_opt_state(params, "adamw")
-    gen = torch.Generator(device=dev).manual_seed(0)
-    rng = np.random.default_rng(1)
-    for i in range(steps):
-        mel, text, lens = (torch.as_tensor(a, device=dev) for a in structured_toy_batch(rng, cfg, batch, n))
-        draws = cfm_draws(gen, lens, n, cfg.mel_dim, ccfg)
-        loss, _ = cfm_loss(params, ccfg, draws, mel, text, lens)
-        loss.backward()
-        adamw_apply(params, [t.grad for t in leaves], opt_state, 3e-4, 0.0)
-        for t in leaves:
-            t.grad = None
-        if log and (i % 50 == 0 or i == steps - 1):
-            log(f"  toy-train step {i}: loss {float(loss):.4f}")
-    return params
-
-
-def n_forwards(s: SamplerConfig) -> int:
-    """Batch-b forwards per solve (a fused 2b CFG pair counts 2)."""
-    evals_per_step = EVALS_PER_STEP[s.method]
-    if s.cfg_null_reuse and s.cfg_strength >= 1e-5:
-        return s.steps * (2 + (evals_per_step - 1))
-    steps = s.steps * evals_per_step
-    if s.cfg_strength < 1e-5:
-        return steps
-    if s.cfg_cache_period > 1:
-        k = s.cfg_cache_period
-        groups = s.steps // k
-        return steps + groups + (s.steps - groups * k)  # cond every step + null refreshes
-    lo, hi = s.cfg_interval
-    if (lo, hi) != (0.0, 1.0):
-        t = np.linspace(0.0, 1.0, s.steps + 1)
-        if s.sway_sampling_coef is not None:
-            t = t + s.sway_sampling_coef * (np.cos(np.pi / 2 * t) - 1 + t)
-        guided = int(np.sum((t[:-1] >= lo) & (t[:-1] < hi)))
-        return evals_per_step * (2 * guided + (s.steps - guided))
-    return 2 * steps
-
-
-def build_prompts(cfg: DiTConfig, k: int, bucket: int, cond_frames: int, seed: int = 7):
-    """The fixed certification prompts: smooth harmonic reference mels, text
-    ids of varied lengths, durations spread over [60%, 100%] of the bucket,
-    noise seeds 1000..1000+k."""
-    rng = np.random.default_rng(seed)
-    t = np.arange(cond_frames)[:, None] / 93.75
-    freqs = rng.uniform(0.5, 4.0, (k, 1, cfg.mel_dim))
-    phase = rng.uniform(0, 2 * np.pi, (k, 1, cfg.mel_dim))
-    cond = np.zeros((k, bucket, cfg.mel_dim), np.float32)
-    cond[:, :cond_frames] = np.sin(2 * np.pi * freqs * t[None] + phase) * 0.7 - 1.5
-    durations = np.linspace(0.6 * bucket, bucket, k).astype(np.int32)
-    nt = int(0.12 * bucket)
-    text = rng.integers(0, cfg.text_num_embeds, (k, nt)).astype(np.int32)
-    for r in range(k):
-        text[r, int(nt * (0.5 + 0.5 * r / max(k - 1, 1))):] = -1
-    seeds = np.arange(1000, 1000 + k, dtype=np.int32)
-    lens = np.full((k,), cond_frames, np.int32)
-    return cond, lens, text, durations, seeds
 
 
 def make_prompt_fn(cfg: DiTConfig, batch: int, bucket: int, cond_frames: int):
@@ -177,13 +93,11 @@ def run(geometry: str = "tiny", toy_train_steps: int = 500, student_steps: int =
     else:
         say(f"toy-training {toy_train_steps} steps at {geometry}...")
         t0 = time.perf_counter()
-        teacher = tree_map(lambda t: t.requires_grad_(True), params_from_numpy(init_dit_numpy(cfg, seed=0), dev))
-        toy_train(teacher, cfg, toy_train_steps, log=log)
+        teacher = toy_field(cfg, toy_train_steps, dev, log=log)
         say(f"  toy-train {time.perf_counter() - t0:.0f}s")
         if tpath:
             os.makedirs(solve_cache, exist_ok=True)
-            save_params_npz(tpath, tree_map(lambda t: t.detach().cpu().numpy(), teacher))
-    teacher = tree_map(lambda t: t.detach(), teacher)
+            save_params_npz(tpath, tree_map(lambda t: t.cpu().numpy(), teacher))
 
     cond, lens, text, durations, seeds = build_prompts(cfg, prompts, bucket, cond_frames)
     gen_mask = (np.arange(bucket)[None, :] >= lens[:, None]) & (np.arange(bucket)[None, :] < durations[:, None])

@@ -1,6 +1,6 @@
 """Train-state checkpoints as ``torch.save`` step directories (counterpart
-of ``f5tts_tpu/train/checkpoint.py``, which writes orbax state; orbax
-checkpoints are not read here).
+of ``f5tts_tpu/train/checkpoint.py``, which writes orbax state; the params
+of those are read by ``models/convert.py:load_trained_checkpoint``).
 
 ``<dir>/<step>/state.pt`` holds the whole state (params, optimizer moments,
 EMA, step). A save writes a temporary directory and renames it into place,

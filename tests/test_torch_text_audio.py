@@ -69,7 +69,7 @@ def test_preprocess_matches_jax():
 def test_crossfade_and_wav_io(tmp_path):
     rng = np.random.default_rng(1)
     waves = [rng.standard_normal(n).astype(np.float32) for n in (5000, 3000, 100, 8000)]
-    np.testing.assert_allclose(t_stitch.crossfade_concat(waves, 0.15), j_stitch.crossfade_concat(waves, 0.15), atol=1e-6)
+    np.testing.assert_array_equal(t_stitch.crossfade_concat(waves, 0.15), j_stitch.crossfade_concat(waves, 0.15))
     np.testing.assert_array_equal(t_stitch.crossfade_concat(waves, 0.0), j_stitch.crossfade_concat(waves, 0.0))
     path = tmp_path / "x.wav"
     t_io.write_wav(str(path), 0.5 * waves[0] / np.abs(waves[0]).max(), 24000)
@@ -105,7 +105,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "f5tts_tpu", "flax", "optax"), f"{path} imports {mod}"
+            assert top not in ("jax", "jaxlib", "f5tts_tpu", "flax", "optax", "orbax"), f"{path} imports {mod}"
 
 
 @pytest.mark.parametrize("argv", [["--demo-tiny"], ["--random-init"], ["--random-init", "-m", "F5TTS_Small"],
