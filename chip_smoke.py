@@ -8,6 +8,7 @@
     python3 chip_smoke.py --parallel-only  # the build and phase 18 alone (no result lines)
     python3 chip_smoke.py --ar-only  # the build and phase 19 alone (no result lines)
     python3 chip_smoke.py --leftovers-only  # the build, the F5 bench and phase 20 (no result lines)
+    python3 chip_smoke.py --tools-only  # the build and phase 21 alone (no result lines)
 
 Phases, each of which fails the run (non-zero exit) on any error:
 
@@ -255,6 +256,24 @@ Phases, each of which fails the run (non-zero exit) on any error:
    in-process, its cache and output in a temporary directory: kernels 1 and
    2 exactly 22 + 22 + 1 per DiT forward, every row finite with its
    ``n_forwards``, the seconds it took.
+21. the probe and profiling tools (after phase 20; ``f5tts_tpu_torch/scripts/``,
+   each through the functions its ``main`` calls, every kernel's launches set
+   to 0 before each and checked after): (a) ``e2e_real_ckpt`` at Base (a
+   ~2.7-GB trainer-layout ``.pt`` in a temporary directory, the convert CLI
+   as a subprocess, a bf16 engine at Euler NFE 4 and bucket 512, the fp32
+   solve of the ``.npz`` tree equal to the in-memory EMA tree's within 1e-6
+   relative and the online tree's off by more than 1e-4); (b)
+   ``strict_live_probe`` over ``ModelService`` on a seeded Base tree written
+   as ``.npz`` (the three rows; 22 + 22 + 1 launches per forward); (c)
+   ``profile_sampler``'s six variants at b 8 x 1024, Ralston NFE 20, bf16,
+   with exact launches per solve (0 attention kernels with attention knocked
+   out or on the plain path, 0 conv-pos without conv-pos) and ``full``'s
+   device ms by kernel family; (d) ``component_bench``; (e)
+   ``parler_roofline`` at batch 16 (the JAX defaults 8, 16, 32 cut for time),
+   one timed call each, 2 x 24 decode-attention launches a position; (f)
+   ``parler_step_probe``'s six variants at b 16 and 16 positions, eager and
+   in a CUDA graph, ``kernelattn`` launching 2 x 24 x 16 a run and ending
+   within 5e-2 of ``unrolled``'s state.
 
 The last lines are the card's name and power limit, one ``{"kernels": [...]}``
 JSON line and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -2338,9 +2357,11 @@ def _all_wrappers() -> dict:
             "ablate_attention": ablate_attention}
 
 
-def _launched(what: str, run, want: dict):
+def _launched(what: str, run, want):
     """Run ``run`` with every kernel's count set to 0 before it; every count
-    read after it must equal ``want``'s (0 where ``want`` has no entry)."""
+    read after it must equal ``want``'s (0 where ``want`` has no entry).
+    ``want`` may be a function of the counts read (a run whose solves are not
+    known before it); the counts it returns are checked the same way."""
     wrappers = _all_wrappers()
     before = {name: w.launches for name, w in wrappers.items()}
     for w in wrappers.values():
@@ -2350,6 +2371,8 @@ def _launched(what: str, run, want: dict):
     got = {name: w.launches for name, w in wrappers.items()}
     for name, w in wrappers.items():  # the running totals go on (the ablation kernel's is checked at the end)
         w.launches = before[name] + got[name]
+    if callable(want):
+        want = want(got)
     log(f"{what}: launches {({k: v for k, v in got.items() if v}) or 'none'} (want {want or 'none'})")
     check(got == {name: want.get(name, 0) for name in wrappers}, f"{what}: launches {got}, want {want}")
     return out
@@ -4139,6 +4162,215 @@ def leftovers_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card: str, launc
     log(f"phase 20 (module leftovers) took {time.perf_counter() - t_phase:.1f} s on {card}")
 
 
+
+# ---------------------------------------------------------------------------
+# phase 21: the probe and profiling tools
+# ---------------------------------------------------------------------------
+
+TOOLS_E2E = dict(nfe=4, bucket=512, dtype="bfloat16")  # the JAX script's chip run
+TOOLS_PROFILE_ITERS = 2  # the JAX script's iterations per variant
+TOOLS_STEP_PROBE = dict(batch=16, steps=16)  # as PARLER_STEP_PROBE.json ran
+TOOLS_STEP_ITERS = 3
+TOOLS_KERNELATTN_REL = 5e-2  # kernelattn vs unrolled last hidden state, bf16 (the kernel vs fp32-score attention)
+TOOLS_ROOFLINE_BATCH = 16  # the JAX script's default batches 8,16,32 cut to 16 for time, iters 1
+
+
+def _tools_e2e(dev, card: str, launches: dict) -> None:
+    """(a) a full-size trainer ``.pt`` through the convert CLI, the engine and
+    the parity solves, in a temporary directory."""
+    import tempfile
+
+    from f5tts_tpu_torch.models.convert import init_dit_numpy
+    from f5tts_tpu_torch.models.dit import param_count
+    from f5tts_tpu_torch.models.vocos import VocosConfig
+    from f5tts_tpu_torch.scripts import e2e_real_ckpt as e2e
+
+    cfg, nfe = e2e.base_config(), TOOLS_E2E["nfe"]
+    forwards = nfe  # Euler, CFG fused: one 2-row forward a step
+    want = {"flash_attention": cfg.depth * forwards * 4, "rope_rows": cfg.depth * forwards,  # fp32: RoPE in the kernel
+            "conv_pos": forwards + 3 * 2 * forwards}  # fp32 conv-pos: one launch a layer
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="f5_e2e_") as tmp:
+        result, _ = _launched(f"(a) e2e_real_ckpt at Base ({TOOLS_E2E['dtype']} engine, NFE {nfe}, bucket "
+                              f"{TOOLS_E2E['bucket']}; three fp32 parity solves)",
+                              lambda: e2e.run(cfg, VocosConfig(), os.path.join(tmp, "f5_base_e2e.pt"),
+                                              device=dev, **TOOLS_E2E, log=lambda m: log(f"(a) {m}")), want)
+        left = os.listdir(tmp)
+    for name, n in want.items():
+        launches[name]["tools_e2e"] = n
+    log(f"(a) e2e_real_ckpt on {card}: {json.dumps(result)} in {time.perf_counter() - t0:.1f} s")
+    check(result["parity_ok"] and result["mel_rel"] <= e2e.PARITY_REL
+          and result["online_mel_rel"] > e2e.ONLINE_MIN_REL and result["wave_samples"] > 0 and not left,
+          f"e2e: {result}, files left {left}")
+    n_params = param_count(init_dit_numpy(cfg, seed=None))  # shapes only
+    check(round(result["params_m"] * 1e6) == n_params and result["ckpt_gb"] > 2 * 4 * n_params / 1e9,
+          f"e2e checkpoint size: {result}, want {n_params} params in two fp32 dicts")
+
+
+def _tools_strict(dev, card: str, launches: dict) -> None:
+    """(b) the strict probe over ``ModelService`` on the seeded Base tree."""
+    import tempfile
+
+    from f5tts_tpu_torch.models.dit import DiTConfig
+    from f5tts_tpu_torch.scripts import strict_live_probe as slp
+
+    depth = DiTConfig.base().depth
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="f5_strict_") as work:
+        settings = {**slp.write_assets(work, seeded_teacher=True), "warmup": False,
+                    "speech_rate_limit": "1000/minute", "device": dev.type}
+        forwards = {}  # the solves' DiT forwards (one conv-pos launch each): known after the requests
+
+        def want(got):
+            forwards["n"] = got["conv_pos"]
+            return {"flash_attention": depth * forwards["n"], "rope_rows": depth * forwards["n"],
+                    "conv_pos": forwards["n"]}
+
+        out = _launched("(b) strict_live_probe over the service (seeded Base, bf16)",
+                        lambda: slp.run("service", settings, work, log=lambda m: log(f"(b) {m}")), want)
+    for name, per_forward in (("flash_attention", depth), ("rope_rows", depth), ("conv_pos", 1)):
+        launches[name]["tools_strict"] = per_forward * forwards["n"]
+    rows = out["rows"]
+    log(f"(b) strict_live_probe on {card} in {time.perf_counter() - t0:.1f} s: threshold {out['threshold']}, rows "
+        f"{json.dumps(rows)}; {out['note']}")
+    check(list(rows) == ["easy_strict", "hard_strict", "hard_default"]
+          and all(r["wav_bytes"] > 44 and r["escalations_delta"] >= 0 for r in rows.values())
+          and rows["hard_default"]["escalations_delta"] == 0, f"strict probe rows: {rows}")
+
+
+def _tools_profile(dev, card: str, launches: dict) -> None:
+    """(c) the knock-out table at the shipping recipe, with ``full``'s families."""
+    from f5tts_tpu_torch.models.convert import dit_params_from_numpy, init_dit_numpy
+    from f5tts_tpu_torch.models.dit import DiTConfig
+    from f5tts_tpu_torch.models import modules as m
+    from f5tts_tpu_torch.scripts import profile_sampler as ps
+
+    cfg = DiTConfig.base()
+    params = dit_params_from_numpy(init_dit_numpy(cfg, seed=0), dev, torch.bfloat16)
+    inputs = ps.make_inputs(cfg, device=dev)
+    forwards, calls = 20, TOOLS_PROFILE_ITERS + 1  # Ralston NFE 20; a warm call and the timed ones
+    per_solve = {"full": (1, 1), "no-attention": (0, 1), "no-ff": (1, 1), "no-convpos": (1, 0), "no-adaln": (1, 1),
+                 "plain-attn": (0, 1)}  # variant -> (attention kernels, conv-pos kernel) a forward
+    want_solve = {v: {"flash_attention": a * cfg.depth * forwards, "rope_rows": a * cfg.depth * forwards,
+                      "conv_pos": c * forwards} for v, (a, c) in per_solve.items()}
+    want = {k: sum(w[k] * (calls + (v == "full")) for v, w in want_solve.items())  # full: one profiled solve more
+            for k in ("flash_attention", "rope_rows", "conv_pos")}
+    originals = {name: getattr(m, name) for name, _ in ps.KNOCKOUTS.values()}
+    t0 = time.perf_counter()
+    out = _launched("(c) profile_sampler, six variants", lambda: ps.profile(
+        params, cfg, inputs, iters=TOOLS_PROFILE_ITERS, device=dev, log=lambda msg: log(f"(c) {msg}")), want)
+    for name, n in want.items():
+        launches[name]["tools_profile"] = n
+    check(all(getattr(m, name) is fn for name, fn in originals.items()), "a knock-out was left patched")
+    check(out["launches"] == want_solve, f"knock-out launches per solve {out['launches']}, want {want_solve}")
+    fams = out["families"] or {}
+    check(fams.get("flash_attention", {}).get("launches") == cfg.depth * forwards
+          and fams.get("conv_pos", {}).get("launches") == forwards, f"full's profile families {fams}")
+    t = out["times_s"]
+    shares = sum(t["full"] - t[v] for v in ("no-attention", "no-ff", "no-convpos", "no-adaln"))
+    log(f"(c) knock-out table on {card} (b 8 x 1024, Ralston NFE 20, CFG 2, bf16): "
+        + ", ".join(f"{v} {s:.4f} s" for v, s in t.items())
+        + f"; the four shares sum to {shares:.4f} s of the full {t['full']:.4f} s; {time.perf_counter() - t0:.1f} s")
+    check(all(np.isfinite(v) and v > 0 for v in t.values()), f"knock-out times {t}")
+    del params
+
+
+def _tools_component(dev, card: str, launches: dict) -> None:
+    """(d) one fused-CFG DiT step per attention path and the Vocos decode."""
+    from f5tts_tpu_torch.models.dit import DiTConfig
+    from f5tts_tpu_torch.models.vocos import VocosConfig
+    from f5tts_tpu_torch.scripts import component_bench as cb
+
+    depth, iters = DiTConfig.base().depth, 5
+    steps = iters + 1  # a warm call and the timed ones, per path
+    want = {"flash_attention": depth * steps, "rope_rows": depth * steps, "conv_pos": 2 * steps}
+    out = _launched("(d) component_bench", lambda: cb.run(DiTConfig.base(), VocosConfig(), 16, 1024, iters, dev,
+                                                           log=lambda m: log(f"(d) {m}")), want)
+    for name, n in want.items():
+        launches[name]["tools_component"] = n
+    log(f"(d) component_bench on {card}: {json.dumps(out)}")
+    check(all(np.isfinite(out[k]) and out[k] > 0 for k in ("dit_step_plain_ms", "dit_step_flash_ms",
+                                                           "vocos_decode_ms")), f"component times {out}")
+
+
+def _tools_roofline(dev, card: str, launches: dict, cfgs, trees) -> None:
+    """(e) the Parler roofline at batch 16, one timed call each."""
+    from f5tts_tpu_torch.models.convert import parler_params_from_numpy
+    from f5tts_tpu_torch.scripts import parler_roofline as pr
+
+    dec_cfg = cfgs[1]
+    frames = 430
+    steps = frames + dec_cfg.codebooks - 1
+    half = frames // 2 + dec_cfg.codebooks - 1
+    decodes = [steps] * 3 + [half]  # sampled (warm + timed), greedy, half the frames
+    want = {"decode_attention": 2 * dec_cfg.layers * sum(decodes)}
+    t0 = time.perf_counter()
+    tensors = parler_params_from_numpy(*trees, dev, torch.bfloat16)
+    out = _launched(f"(e) parler_roofline at batch {TOOLS_ROOFLINE_BATCH} ({len(decodes)} decodes of "
+                    f"{decodes} positions, 2 x {dec_cfg.layers} kernel launches a position)",
+                    lambda: pr.run(tensors, cfgs, [TOOLS_ROOFLINE_BATCH], frames, iters=1, device=dev,
+                                   log=lambda m: log(f"(e) {m}")), want)
+    launches["decode_attention"]["tools_roofline"] = want["decode_attention"]
+    (row,) = out["rows"]
+    log(f"(e) parler_roofline on {card} in {time.perf_counter() - t0:.1f} s: step {row['step_us']:.1f} us against "
+        f"a bound of {row['step_bound_us']:.1f} us ({100 * row['bw_efficiency']:.2f}% of it), "
+        f"{row['audio_s_per_s_pipeline']:.2f} audio-s/s the pipeline")
+    check(all(np.isfinite(v) and v > 0 for v in row.values()), f"roofline row {row}")
+    del tensors
+
+
+def _tools_step_probe(dev, card: str, launches: dict) -> None:
+    """(f) the decode-step layouts, eager and in a CUDA graph."""
+    from f5tts_tpu_torch.scripts import parler_step_probe as psp
+
+    t0 = time.perf_counter()
+    probe = psp.StepProbe(**TOOLS_STEP_PROBE, device=dev)
+    log(f"(f) step probe weights ({probe.L} layers, hidden {probe.H}, ffn {probe.F}, b {probe.b}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    per_run = 2 * probe.L * probe.steps  # self and cross attention, every layer, every position
+    runs = 1 + TOOLS_STEP_ITERS + 2  # the counted warm run, the timed ones, the graph's warm-up and its capture
+    want = {"decode_attention": per_run * runs}
+    out = _launched("(f) parler_step_probe, six variants", lambda: psp.run(
+        probe, iters=TOOLS_STEP_ITERS, log=lambda m: log(f"(f) {m}")), want)
+    launches["decode_attention"]["tools_step_probe"] = want["decode_attention"]
+    rows = {r["variant"]: r for r in out["rows"]}
+    check(list(rows) == list(psp.VARIANTS) and all("graph_step_us" in r for r in rows.values()),
+          f"step probe rows {list(rows)}")
+    check(all(r["decode_attention_launches"] == (per_run if v == "kernelattn" else 0) for v, r in rows.items()),
+          f"kernel launches per eager run {({v: r['decode_attention_launches'] for v, r in rows.items()})}")
+    ref = probe.hidden["unrolled"]
+    rel = {v: float((h - ref).norm() / ref.norm()) for v, h in probe.hidden.items()}
+    graph_off = {v: r["graph_vs_eager_max_abs"] for v, r in rows.items()}
+    log(f"(f) step probe on {card} (b {probe.b}, {probe.steps} positions): eager / graph us a step "
+        + ", ".join(f"{v} {r['step_us']:.1f} / {r['graph_step_us']:.1f}" for v, r in rows.items())
+        + f"; bound {rows['unrolled']['bound_us']:.1f} us; last hidden state vs unrolled, relative L2 {rel}; "
+          f"graph vs eager max abs {graph_off}; {time.perf_counter() - t0:.1f} s")
+    check(all(np.isfinite(v) for v in (*rel.values(), *graph_off.values())), "step probe states not finite")
+    check(rel["kernelattn"] < TOOLS_KERNELATTN_REL and rel["fusedqkv"] < TOOLS_KERNELATTN_REL,
+          f"kernelattn / fusedqkv off unrolled: {rel}")
+    del probe
+
+
+def tools_phase(dev, card: str, launches: dict, parler_cfgs, parler_trees) -> None:
+    """Phase 21: the probe and profiling tools, each through its module's
+    functions as ``main`` calls them."""
+    from f5tts_tpu_torch.utils import timing
+
+    check((timing.PEAK_BF16_FLOPS, timing.PEAK_INT8_OPS, timing.PEAK_BYTES)
+          == (PEAK_BF16_FLOPS, PEAK_INT8_OPS, PEAK_BYTES), "the tools' peaks differ from this script's")
+    t_phase = time.perf_counter()
+    for name in ("decode_attention", "flash_attention", "rope_rows", "conv_pos"):
+        launches.setdefault(name, {})
+    _tools_e2e(dev, card, launches)
+    _tools_strict(dev, card, launches)
+    _tools_profile(dev, card, launches)
+    _tools_component(dev, card, launches)
+    torch.cuda.empty_cache()
+    _tools_roofline(dev, card, launches, parler_cfgs, parler_trees)
+    _tools_step_probe(dev, card, launches)
+    torch.cuda.empty_cache()
+    log(f"phase 21 (tools) took {time.perf_counter() - t_phase:.1f} s on {card}")
+
 def main():
     t_script = time.time()
     ap = argparse.ArgumentParser()
@@ -4154,6 +4386,8 @@ def main():
                     help="build the kernels and run only the autoregressive leftovers phase (no result lines)")
     ap.add_argument("--leftovers-only", action="store_true",
                     help="build the kernels and run only the F5 bench and the module leftovers phase (no result lines)")
+    ap.add_argument("--tools-only", action="store_true",
+                    help="build the kernels and run only the probe and profiling tools phase (no result lines)")
     ap.add_argument("--kernels-only", action="store_true",
                     help="build and check the kernels (and run the ablation), skip the engine, bench, int8, "
                          "training, distillation and Parler phases")
@@ -4184,6 +4418,12 @@ def main():
         launches = {"decode_attention": {}}
         ar_phase(dev, card, launches, *parler_full_trees())
         log(f"launches {launches}")
+        return
+    if args.tools_only:
+        launches = {}
+        tools_phase(dev, card, launches, *parler_full_trees())
+        log(f"launches {launches}")
+        check(ablate_attention.launches == 0, "the ablation kernel ran on a tool's path")
         return
     if args.serving_only or args.backbones_only or args.distill_only or args.parallel_only or args.leftovers_only:
         from f5tts_tpu_torch.models.convert import init_dit_numpy, init_vocos_numpy
@@ -4235,11 +4475,12 @@ def main():
         parler = parler_full_trees()  # indic-parler-tts width and depth, random weights
         parler_phase(dev, card, launches, *parler)
         ar_phase(dev, card, launches, *parler)  # phase 19
-        del parler
         leftovers_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card, launches, bf16_bench, t_script)  # phase 20
         del dit_np, voc_np
+        tools_phase(dev, card, launches, *parler)  # phase 21
+        del parler
         log(f"ablate_attention launches through the engine, int8, serving, training, distillation, Parler, "
-            f"autoregressive and module-leftover phases: "
+            f"autoregressive, module-leftover and tool phases: "
             f"{ablate_attention.launches} (want 0)")
         check(ablate_attention.launches == 0, "the ablation kernel ran on a serving or training path")
     for k in kernels:
