@@ -290,32 +290,35 @@ class TTSEngine:
         """Reference conditioning, chunking and durations -> the rows to synthesize."""
         if quality not in ("default", "strict"):
             raise ValueError(f"quality must be default|strict, got {quality!r}")
-        cfg = self.cfg
-        speed = speed if speed is not None else cfg.speed
-        steps = nfe_to_steps(nfe_step, cfg.sampler.method) if nfe_step is not None else cfg.sampler.steps
-        guidance = cfg_strength if cfg_strength is not None else cfg.sampler.cfg_strength
-        xfade = cross_fade_duration if cross_fade_duration is not None else cfg.cross_fade_duration
-        cond_mel, ref_frames, ref_text, rms, chunks = self._prepare_reference(gen_text, ref_audio, ref_sr, ref_text, speed)
-        rows = [
-            RowSpec(
-                text=ref_text + c, cond_mel=cond_mel, ref_frames=ref_frames,
-                duration=min(duration_frames(ref_frames, ref_text, c, speed, fix_duration_secs,
-                                             cfg.mel.sample_rate, cfg.mel.hop_length), cfg.max_duration),
-                steps=steps, cfg_strength=guidance, seed=seed, quality=quality,
-            )
-            for c in chunks
-        ]
-        return RequestPlan(rows=rows, rms=rms, cross_fade_duration=xfade)
+        with GLOBAL_TIMER.stage("engine.prepare_request"):
+            cfg = self.cfg
+            speed = speed if speed is not None else cfg.speed
+            steps = nfe_to_steps(nfe_step, cfg.sampler.method) if nfe_step is not None else cfg.sampler.steps
+            guidance = cfg_strength if cfg_strength is not None else cfg.sampler.cfg_strength
+            xfade = cross_fade_duration if cross_fade_duration is not None else cfg.cross_fade_duration
+            cond_mel, ref_frames, ref_text, rms, chunks = self._prepare_reference(gen_text, ref_audio, ref_sr,
+                                                                                  ref_text, speed)
+            rows = [
+                RowSpec(
+                    text=ref_text + c, cond_mel=cond_mel, ref_frames=ref_frames,
+                    duration=min(duration_frames(ref_frames, ref_text, c, speed, fix_duration_secs,
+                                                 cfg.mel.sample_rate, cfg.mel.hop_length), cfg.max_duration),
+                    steps=steps, cfg_strength=guidance, seed=seed, quality=quality,
+                )
+                for c in chunks
+            ]
+            return RequestPlan(rows=rows, rms=rms, cross_fade_duration=xfade)
 
     def finalize_request(self, plan: RequestPlan, results: list[tuple[np.ndarray, np.ndarray]]):
         """Per-row (wave, mel) results -> (stitched wave, sr, concatenated mel)."""
-        waves = [w for w, _ in results]
-        mels = [m_ for _, m_ in results]
-        if plan.rms < self.cfg.target_rms:
-            waves = [w * plan.rms / self.cfg.target_rms for w in waves]
-        final = crossfade_concat(waves, plan.cross_fade_duration, TARGET_SR)
-        mel = np.concatenate(mels, axis=0) if mels else np.zeros((0, self.cfg.mel.n_mels), np.float32)
-        return final, TARGET_SR, mel
+        with GLOBAL_TIMER.stage("engine.finalize_request"):
+            waves = [w for w, _ in results]
+            mels = [m_ for _, m_ in results]
+            if plan.rms < self.cfg.target_rms:
+                waves = [w * plan.rms / self.cfg.target_rms for w in waves]
+            final = crossfade_concat(waves, plan.cross_fade_duration, TARGET_SR)
+            mel = np.concatenate(mels, axis=0) if mels else np.zeros((0, self.cfg.mel.n_mels), np.float32)
+            return final, TARGET_SR, mel
 
     def synthesize(self, gen_text, ref_audio, ref_sr, ref_text, **kw) -> tuple[np.ndarray, int, np.ndarray]:
         """Full text -> waveform path: returns (wave, 24000, concatenated mel)."""
@@ -563,19 +566,35 @@ class TTSEngine:
         batched solves. Yields ``(row index, (wave, gen mel), estimate or None)``;
         a solve estimates when a row of it is strict, none is an edit row and
         the sampler can. Up to ``fetch_pipeline_depth`` solves are queued
-        before the oldest one's results are read."""
+        before the oldest one's results are read.
+
+        Each solve is traced in ``GLOBAL_TIMER`` (spans ``engine.pack``,
+        ``engine.dispatch``, ``engine.fetch_wait``; counters ``engine.solves``,
+        ``engine.frames_solved``, ``engine.frames_needed``) and, on a card,
+        timed by two CUDA events: ``engine.solve_device``, and
+        ``engine.solve_gap`` from the previous solve's end event in this call
+        (an escalation pass starts without one), read once the solve's
+        results are fetched. ``engine.dispatch`` is not launch time alone:
+        Vocos's inverse STFT uploads its constants from pageable memory, and
+        the host waits there for the card to drain the sampler."""
         cfg = self.cfg
         caps = dict(cfg.solve_batch_caps)
         can_estimate = not recipe and self._supports_estimate()
         dev = self.device
+        cuda = dev.type == "cuda"
         in_flight: list[tuple] = []
+        last_end = None  # the previous solve's end event
 
         def fetch(entry):
-            nb, bb, sub, dur, out_start, host, event = entry
-            with GLOBAL_TIMER.stage(f"{'escalate' if recipe else 'sample_decode'}_n{nb}_b{bb}"):
-                if event is not None:
-                    event.synchronize()
+            sub, dur, out_start, host, (ev0, ev1, prev) = entry
+            with GLOBAL_TIMER.stage("engine.fetch_wait"):
+                if ev1 is not None:
+                    ev1.synchronize()
                 gen, wave = host[0].numpy(), host[1].numpy()
+            if ev1 is not None:
+                GLOBAL_TIMER.record("engine.solve_device", ev0.elapsed_time(ev1) * 1e-3)
+                if prev is not None:
+                    GLOBAL_TIMER.record("engine.solve_gap", prev.elapsed_time(ev0) * 1e-3)
             est = host[2].numpy() if len(host) > 2 else None
             for row, i in enumerate(sub):
                 gen_len = int(dur[row]) - int(out_start[row])
@@ -589,19 +608,26 @@ class TTSEngine:
                 bb = _bucket(len(sub), cfg.batch_buckets)
                 has_edit = any(rows[i].edit_mask is not None for i in sub)
                 want_est = can_estimate and not has_edit and any(rows[i].quality == "strict" for i in sub)
-                text_ids, cond, cond_lens, dur, out_start, em, seeds = self._pack_group(rows, sub, nb, bb)
-                edit = ({"edit_mask": to_device(torch.from_numpy(em), dev),
-                         "out_start": to_device(torch.from_numpy(out_start), dev)} if has_edit else {})
-                out = self.bucket_program(
-                    to_device(torch.from_numpy(cond), dev), to_device(torch.from_numpy(cond_lens), dev),
-                    to_device(torch.from_numpy(text_ids), dev), to_device(torch.from_numpy(dur), dev), seeds,
-                    steps=steps, cfg_strength=guidance, estimate=want_est, recipe=recipe, **edit)
-                host = tuple(self._to_host(t) for t in out)
-                event = None
-                if dev.type == "cuda":
-                    event = torch.cuda.Event()
-                    event.record()
-                in_flight.append((nb, bb, sub, dur, out_start, host, event))
+                with GLOBAL_TIMER.stage("engine.pack"):
+                    text_ids, cond, cond_lens, dur, out_start, em, seeds = self._pack_group(rows, sub, nb, bb)
+                    t0 = torch.cuda.Event(enable_timing=True) if cuda else None
+                    if t0 is not None:
+                        t0.record()  # before the solve's first operation on the card, its uploads
+                    edit = ({"edit_mask": to_device(torch.from_numpy(em), dev),
+                             "out_start": to_device(torch.from_numpy(out_start), dev)} if has_edit else {})
+                    args = [to_device(torch.from_numpy(a), dev) for a in (cond, cond_lens, text_ids, dur)]
+                with GLOBAL_TIMER.stage("engine.dispatch"):
+                    out = self.bucket_program(*args, seeds, steps=steps, cfg_strength=guidance, estimate=want_est,
+                                              recipe=recipe, **edit)
+                    host = tuple(self._to_host(t) for t in out)
+                    t1 = torch.cuda.Event(enable_timing=True) if cuda else None
+                    if t1 is not None:
+                        t1.record()
+                GLOBAL_TIMER.add("engine.solves")
+                GLOBAL_TIMER.add("engine.frames_solved", bb * nb)
+                GLOBAL_TIMER.add("engine.frames_needed", sum(min(rows[i].duration, nb) for i in sub))
+                in_flight.append((sub, dur, out_start, host, (t0, t1, last_end)))
+                last_end = t1
                 if len(in_flight) > cfg.fetch_pipeline_depth:
                     yield from fetch(in_flight.pop(0))
         for entry in in_flight:

@@ -23,15 +23,20 @@ The serving contract is ``ContinuousBatcher``'s (``submit``/``submit_async``/
 on the card between segments: admitted rows are written into its tensors on
 the stream the segments run on, and only finished rows are copied to the
 host. A tick dispatches one segment per active group without reading a device
-value, then waits on one CUDA event. Strict rows run ``synthesize_rows`` on a
-side thread; samplers that hold a null velocity across steps
-(``cfg_cache_period``, ``cfg_null_reuse``) must keep the window batcher.
+value, then waits on one CUDA event. ``GLOBAL_TIMER`` times each segment's
+dispatch (``batcher.dispatch_segment``), each tick's wait
+(``batcher.tick_wait``) and each row's wait from ``submit`` to its admission
+into a group (``batcher.queue_wait``); the warm-up counts in none. Strict
+rows run ``synthesize_rows`` on a side thread; samplers that hold a null
+velocity across steps (``cfg_cache_period``, ``cfg_null_reuse``) must keep
+the window batcher.
 """
 
 from __future__ import annotations
 
 import asyncio
 import threading
+import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass, field
 
@@ -44,6 +49,7 @@ from f5tts_tpu_torch.sampling.euler import sample_noise_from_seeds
 from f5tts_tpu_torch.sampling.segment import (finalize_rows, pair_text_embedding, resolved_time_grid, row_masks,
                                               solve_segment)
 from f5tts_tpu_torch.utils.device import to_device
+from f5tts_tpu_torch.utils.profiling import GLOBAL_TIMER
 
 
 class SegmentPrograms:
@@ -104,6 +110,7 @@ class SegmentPrograms:
 class _Job:
     row: RowSpec
     future: Future = field(default_factory=Future)
+    submitted: float = field(default_factory=time.perf_counter)
 
 
 @dataclass
@@ -192,6 +199,11 @@ class SolveGroup:
         """Queue one k-interval segment on the card and return the new
         trajectory. Slot progress is counted on the host; nothing here waits
         on the card."""
+        with GLOBAL_TIMER.stage("batcher.dispatch_segment"):
+            return self._advance()
+
+    def _advance(self) -> torch.Tensor:
+        """``dispatch_segment``'s work, untimed (the warm-up's segments)."""
         k = self.progs.k
         knots = np.ones((2, k, self.bb), np.float32)  # (t0s, t1s); free and finished slots stay at t0 == t1
         for i, s in enumerate(self.slots):
@@ -359,10 +371,7 @@ class StepBatcher:
                 for _ in g.free_slots():
                     if not pend:
                         break
-                    job = pend.pop(0)
-                    g.admit(job)
-                    not_yet_admitted.discard(id(job))
-                    self.stats["rows"] += 1
+                    self._place(g, pend.pop(0), not_yet_admitted)
                     if g.age_segments > 0:
                         self.stats["mid_solve_joins"] += 1
             # the rest start new groups sized to the backlog
@@ -378,14 +387,18 @@ class StepBatcher:
                 self.stats["groups_started"] += 1
                 n_admit = min(len(pend), bb)
                 for job in pend[:n_admit]:
-                    g.admit(job)
-                    not_yet_admitted.discard(id(job))
-                    self.stats["rows"] += 1
+                    self._place(g, job, not_yet_admitted)
                 pend = pend[n_admit:]
                 self.stats["max_batch_seen"] = max(self.stats["max_batch_seen"], n_admit)
         if leftovers:
             with self._lock:
                 self._jobs = leftovers + self._jobs
+
+    def _place(self, g: SolveGroup, job: _Job, not_yet_admitted: set[int]) -> None:
+        g.admit(job)
+        not_yet_admitted.discard(id(job))
+        self.stats["rows"] += 1
+        GLOBAL_TIMER.record("batcher.queue_wait", time.perf_counter() - job.submitted)
 
     def _run(self):
         try:
@@ -411,10 +424,11 @@ class StepBatcher:
     def _wait(self) -> None:
         """One CUDA event after the tick's last segment: the host tick tracks
         the card's progress."""
-        if self.engine.device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record()
-            event.synchronize()
+        with GLOBAL_TIMER.stage("batcher.tick_wait"):
+            if self.engine.device.type == "cuda":
+                event = torch.cuda.Event()
+                event.record()
+                event.synchronize()
 
     def _run_loop(self):
         while True:
@@ -465,7 +479,7 @@ class StepBatcher:
     def warmup(self, buckets: list[tuple[int, int]] | None = None) -> None:
         """Build the engine's kernels and run a tiny synthetic row through a
         group of each (duration, batch) shape, so the first requests meet no
-        first-use costs. Not counted in ``stats``."""
+        first-use costs. Not counted in ``stats`` or ``GLOBAL_TIMER``."""
         e = self.engine
         e.load_kernels()
         caps = dict(e.cfg.solve_batch_caps)
@@ -477,5 +491,5 @@ class StepBatcher:
                           cfg_strength=e.cfg.sampler.cfg_strength, seed=0)
             g.admit(_Job(row))
             while g.active():
-                g.dispatch_segment()
+                g._advance()
             g.finalize_done()

@@ -9,7 +9,8 @@
 - ``POST /v1/transcribe/``, ``/v1/speech_to_speech``, ``/v1/indic_chat``,
   ``/v1/translate``, ``/v1/visual_query``, ``/v1/document_query_batch``
   (501 unless local model weights are configured);
-- ``GET /v1/health``, ``/v1/metrics`` (JSON or ``?format=prometheus``),
+- ``GET /v1/health``, ``/v1/metrics`` (JSON or ``?format=prometheus``: the
+  fixed spans, device times and counters of ``utils/profiling.py``),
   ``/metrics``, ``/``, ``/app``, ``/v1/voices`` (+ ``POST``, ``DELETE
   /v1/voices/{name}``), ``/v1/model``; ``POST /v1/load_all_models``,
   ``/v1/unload_all_models``, ``/v1/load_model``, ``/v1/profiler/start|stop``;
@@ -282,15 +283,20 @@ def build_app(settings: Settings) -> web.Application:
         from f5tts_tpu_torch.utils.profiling import GLOBAL_TIMER
 
         stages = GLOBAL_TIMER.summary()
+        totals = GLOBAL_TIMER.totals()
         batcher = service.batcher.stats if service.batcher else {}
         escalations = getattr(service.engine, "escalations", 0)
         if request.query.get("format") == "prometheus" or request.path == "/metrics":
-            lines = ["# HELP f5tpu_stage_ms per-request stage timings (rolling window)",
+            lines = ["# HELP f5tpu_stage_ms the program's spans and device times (quantiles: rolling window)",
                      "# TYPE f5tpu_stage_ms summary"]
             for name, s in sorted(stages.items()):
                 for q, key in (("0.5", "p50_ms"), ("0.95", "p95_ms"), ("1.0", "max_ms")):
                     lines.append(f'f5tpu_stage_ms{{stage="{name}",quantile="{q}"}} {s[key]}')
+                lines.append(f'f5tpu_stage_ms_sum{{stage="{name}"}} {totals["times"][name]["total_s"] * 1e3}')
                 lines.append(f'f5tpu_stage_ms_count{{stage="{name}"}} {s["count"]}')
+            for name, n in sorted(totals["counters"].items()):
+                metric = f"f5tpu_{name.replace('.', '_')}_total"
+                lines += [f"# TYPE {metric} counter", f"{metric} {n}"]
             lines += ["# HELP f5tpu_batcher continuous-batcher counters",
                       "# TYPE f5tpu_batcher_batches_total counter"]
             lines += [f"f5tpu_batcher_{k} {v}" for k, v in sorted(batcher.items())]
@@ -299,7 +305,8 @@ def build_app(settings: Settings) -> web.Application:
                       f"f5tpu_reloads_total {service.reloads}",
                       f"f5tpu_quality_escalations_total {escalations}"]
             return web.Response(text="\n".join(lines) + "\n", content_type="text/plain", charset="utf-8")
-        return web.json_response({"stages": stages, "batcher": batcher, "quality_escalations": escalations})
+        return web.json_response({"stages": stages, "totals": totals, "batcher": batcher,
+                                  "quality_escalations": escalations})
 
     async def profiler_start(request: web.Request) -> web.Response:
         check_auth(request)

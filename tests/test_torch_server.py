@@ -124,6 +124,27 @@ def test_voices_webui_metrics(client):
     assert client("GET", "/v1/metrics?format=prometheus")[1].decode().startswith("# HELP")
 
 
+def test_metrics_serve_the_fixed_names(client):
+    """A step-batched and a strict request (``synthesize_rows`` on the side
+    thread) fill the engine's and the batcher's fixed spans and counters."""
+    for quality in ("default", "strict"):
+        resp, _ = client("POST", "/v1/audio/speech",
+                         json={"text": "metrics request.", "nfe_step": 2, "seed": 5, "quality": quality})
+        assert resp.status == 200
+    data = json.loads(client("GET", "/v1/metrics")[1])
+    names = {"engine.prepare_request", "engine.finalize_request", "engine.pack", "engine.dispatch",
+             "engine.fetch_wait", "batcher.dispatch_segment", "batcher.tick_wait", "batcher.queue_wait"}
+    assert names <= set(data["stages"]) and names <= set(data["totals"]["times"])
+    assert not [n for n in data["stages"] if n.startswith(("sample_decode", "escalate"))]
+    counters = data["totals"]["counters"]
+    assert counters["engine.solves"] >= 1 and counters["engine.frames_solved"] >= counters["engine.frames_needed"] > 0
+    text = client("GET", "/metrics")[1].decode()
+    assert f"\nf5tpu_engine_solves_total {counters['engine.solves']}\n" in text
+    assert "# TYPE f5tpu_engine_frames_needed_total counter" in text
+    assert 'f5tpu_stage_ms_sum{stage="engine.dispatch"}' in text
+    assert 'f5tpu_stage_ms_count{stage="batcher.queue_wait"}' in text
+
+
 def test_speech_edit_route(client):
     wav = (np.random.default_rng(0).standard_normal(24000) * 0.1).astype(np.float32)
     resp, body = client("POST", "/v1/speech_edit", data={
