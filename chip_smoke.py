@@ -237,7 +237,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    the stop disabled against the teacher-forced pass over its frames, then
    ``ARTTSEngine.synthesize_batch`` at batch 8, ``text_pad`` 256, 1024
    frames, bf16 (lengths, audio-s/s over the median of 3 calls, ms and
-   launches per position, a device-only profile); no kernel launched.
+   launches per position, a device-only profile); no kernel launched but
+   the row norms (phase 22).
 20. the module leftovers (after phase 19): (a) the fused q/k/v projection:
    kernel 1 on the head-split thirds of one ``(1024, 3072)`` product (bf16,
    16 x 1024 frames, row stride 3072) bit-equal to the call on contiguous
@@ -274,6 +275,20 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``parler_step_probe``'s six variants at b 16 and 16 positions, eager and
    in a CUDA graph, ``kernelattn`` launching 2 x 24 x 16 a run and ending
    within 5e-2 of ``unrolled``'s state.
+22. row norms (with phase 2): kernel 7 (``csrc/row_norm.cu``) in its two
+   modes at the serving forward's shapes, AdaLN's modulated layer norm of 16
+   x 1024 rows of 1024 bf16 (scale and shift strided chunks of the (16, 6144)
+   projection) and the UNetT's RMSNorm of 16 x 1025 rows, bf16 and fp32, and
+   at odd row counts and other widths, against the fp32 plain version; device
+   time per call in a CUDA graph over sets larger than the L2 beside the
+   eager chain it replaces, ``F.layer_norm`` and ``F.rms_norm`` (yardsticks
+   only) and the bound. The launch checks of the engine, int8, serving,
+   E2-TTS (window and step batcher), BigVGAN, fused q/k/v bench and streaming
+   paths, and every ``_launched`` check of phases 19-21, count it: 2 x depth
+   + 1 launches a backbone forward under ``no_grad`` (45 in F5-TTS Base, 49
+   in the UNetT Base), 4 x depth an MMDiT forward, 2 x depth + 1 a pass of
+   the AR mel decoder (its prefill, each position, the teacher-forced pass),
+   none where a gradient is carried.
 
 The last lines are the card's name and power limit, one ``{"kernels": [...]}``
 JSON line and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -298,6 +313,7 @@ PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 ATTN_TOL = 2e-2  # bf16 kernel vs fp32 plain on the same bf16 inputs
 CONV_TOL = 3e-2  # bf16 (bf16 intermediate) vs fp32 plain (fp32 intermediate)
+ROW_NORM_REL = 2.0**-7  # row norms, bf16 kernel (one rounding) vs fp32 plain, max abs err over the peak |value|
 LSE_TOL = 1e-3  # training forward's lse: fp32 in both, scores from the same bf16 inputs
 GRAD_TOL = 3e-2  # attention gradients, max abs error over max(1, peak |ref|): p and dS rounded to bf16
 TRAIN_GRAD_RTOL = 5e-2  # relative L2 of a bf16 kernel train step's gradients vs the fp32 plain path
@@ -557,6 +573,93 @@ def conv_phase(dev) -> dict:
             "replaces": "f5tts_tpu/ops/pallas/conv_pos.py:141", "max_abs_err": err, "ms": ms_kernel,
             "plain_ms": ms_plain, "bound_ms": bms, "bound_by": by, "library_ms": ms_lib, "graph_ms": graph}
 
+
+
+def row_norm_phase(dev) -> dict:
+    """Kernel 7, the row norms, at the serving forward's shapes: AdaLN's modulated layer norm of 16 x 1024 rows of
+    1024 (F5-TTS Base, fused CFG at batch 8; scale and shift strided chunks of the (16, 6144) projection) and the
+    UNetT's RMSNorm of 16 x 1025 rows; against the fp32 plain version, timed eager and in a CUDA graph over sets
+    larger than the L2, beside the chain it replaces and ``F.layer_norm`` / ``F.rms_norm`` (yardsticks only)."""
+    from f5tts_tpu_torch.models import modules as m
+    from f5tts_tpu_torch.ops.kernels.row_norm import row_norm, row_norm_plain
+
+    b, n, c, sets = 16, 1024, 1024, 4  # 4 x (33.5 MB in + 33.5 MB out) > the 50 MB L2
+    g = torch.Generator(device="cpu").manual_seed(7)
+    xs = [torch.randn((b, n, c), generator=g).to(dev, torch.bfloat16) for _ in range(sets)]
+    mods = [(torch.randn((b, 6 * c), generator=g) * 0.3).to(dev, torch.bfloat16) for _ in range(sets)]
+    shift, scale = mods[0].chunk(6, dim=-1)[:2]
+    xr = [torch.randn((b, n + 1, c), generator=g).to(dev, torch.bfloat16) for _ in range(sets)]
+    gain = (1 + 0.3 * torch.randn((c,), generator=g)).to(dev, torch.bfloat16)
+
+    def modulated(i=0):
+        sh, sc = mods[i].chunk(6, dim=-1)[:2]
+        return row_norm(xs[i], scale=sc, shift=sh, eps=1e-6)
+
+    def rms(i=0):
+        return row_norm(xr[i], g=gain, eps=1e-8)
+
+    errs, rel = {}, {}  # max abs err; the same over the peak |value| of the plain version
+    for name, out, ref in (
+            ("modulated bf16", modulated(), row_norm_plain(xs[0].float(), scale=scale.float(), shift=shift.float(),
+                                                           eps=1e-6)),
+            ("rms bf16", rms(), row_norm_plain(xr[0].float(), g=gain.float(), eps=1e-8)),
+            ("modulated fp32", row_norm(xs[0].float(), scale=scale.float(), shift=shift.float(), eps=1e-6),
+             row_norm_plain(xs[0].float(), scale=scale.float(), shift=shift.float(), eps=1e-6)),
+            ("rms fp32", row_norm(xr[0].float(), g=gain, eps=1e-8), row_norm_plain(xr[0].float(), g=gain, eps=1e-8))):
+        torch.cuda.synchronize()
+        errs[name] = float((out.float() - ref).abs().max())
+        rel[name] = errs[name] / float(ref.abs().max())
+    for nn_, cc in ((7, 1024), (333, 512), (1, 768)):  # odd row counts and other widths, 3 x nn_ rows
+        xo = xs[0][:3, :nn_, :cc].contiguous()
+        mo = mods[0][:3, : 2 * cc]
+        before = row_norm.launches
+        out = row_norm(xo, scale=mo[:, cc:], shift=mo[:, :cc], eps=1e-6)
+        check(row_norm.launches == before + 1, "the row norm did not run as one launch")
+        ref = row_norm_plain(xo.float(), scale=mo[:, cc:].float(), shift=mo[:, :cc].float(), eps=1e-6)
+        key = f"modulated bf16 3 x {nn_} x {cc}"
+        errs[key] = float((out.float() - ref).abs().max())
+        rel[key] = errs[key] / float(ref.abs().max())
+    log("row_norm: kernel vs fp32 plain, max abs err (over the peak |value|): "
+        + ", ".join(f"{k} {errs[k]:.3e} ({rel[k]:.3e})" for k in errs)
+        + f" (tol over the peak {ROW_NORM_REL:.3e} bf16, 1e-5 fp32)")
+    check(all(np.isfinite(v) and v <= (1e-5 if "fp32" in k else ROW_NORM_REL) for k, v in rel.items()),
+          f"row_norm errors over the peak {rel}")
+
+    def chain():  # what the modulated call sites ran before the kernel
+        return m.layer_norm(xs[0]) * (1 + scale[:, None]) + shift[:, None]
+
+    def rms_chain():
+        x32 = xr[0].float()
+        y = x32 * torch.rsqrt(torch.clamp_min((x32 * x32).sum(-1, keepdim=True), 1e-8)) * (c ** 0.5)
+        return (y * gain.float()).to(xr[0].dtype)
+
+    def library():
+        return F.layer_norm(xs[0], (c,), eps=1e-6)
+
+    def rms_library():
+        return F.rms_norm(xr[0], (c,), gain, 1e-8)
+
+    ms = {"kernel": time_ms(modulated), "plain": time_ms(chain), "library": time_ms(library),
+          "rms_kernel": time_ms(rms), "rms_plain": time_ms(rms_chain), "rms_library": time_ms(rms_library)}
+    graph = {"kernel": time_graph_ms([lambda i=i: modulated(i) for i in range(sets)] * 5),
+             "plain": time_graph_ms([chain] * 5), "library": time_graph_ms([library] * 5),
+             "rms_kernel": time_graph_ms([lambda i=i: rms(i) for i in range(sets)] * 5),
+             "rms_plain": time_graph_ms([rms_chain] * 5), "rms_library": time_graph_ms([rms_library] * 5)}
+    bms, by = bound_ms(10.0 * b * n * c, 2 * b * n * c * 2 + 2 * b * c * 2, PEAK_BF16_FLOPS)
+    rms_bms, _ = bound_ms(6.0 * b * (n + 1) * c, 2 * b * (n + 1) * c * 2 + c * 2, PEAK_BF16_FLOPS)
+    log(f"row_norm times (ms; eager with host time / device time per call in a CUDA graph): modulated "
+        f"(16 x 1024 x 1024 bf16) kernel {ms['kernel']:.4f} / {graph['kernel']:.4f}, the chain it replaces "
+        f"{ms['plain']:.4f} / {graph['plain']:.4f}, F.layer_norm alone (yardstick) {ms['library']:.4f} / "
+        f"{graph['library']:.4f}, bound {bms:.4f} ({by}; {100 * bms / graph['kernel']:.1f}% of it); RMS "
+        f"(16 x 1025 x 1024) kernel {ms['rms_kernel']:.4f} / {graph['rms_kernel']:.4f}, chain {ms['rms_plain']:.4f} / "
+        f"{graph['rms_plain']:.4f}, F.rms_norm (yardstick) {ms['rms_library']:.4f} / {graph['rms_library']:.4f}, "
+        f"bound {rms_bms:.4f} ({100 * rms_bms / graph['rms_kernel']:.1f}% of it)")
+    return {"name": "row_norm", "route": "cuda", "source": "f5tts_tpu_torch/csrc/row_norm.cu",
+            "replaces": "none: XLA fused f5tts_tpu/models/modules.py:layer_norm + the AdaLN modulation, rms_norm",
+            "max_abs_err": max(errs.values()), "max_rel_peak_err": max(rel.values()), "ms": ms["kernel"], "plain_ms": ms["plain"], "bound_ms": bms,
+            "bound_by": by, "library_ms": ms["library"], "graph_ms": graph,
+            "other_shapes": {"rms_16x1025x1024": {k: v for k, v in ms.items() if k.startswith("rms")}
+                             | {"bound_ms": rms_bms}}}
 
 
 def _decode_inputs(dev, dtype, b, h, n_kv, total, d, seed, *, bound=None, pad_row=None, dead_row=None, ragged=False):
@@ -1083,6 +1186,7 @@ def engine_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, launches: dict) -> 
     from f5tts_tpu_torch.engine.engine import EngineConfig, TTSEngine
     from f5tts_tpu_torch.ops.kernels.conv_pos import conv_pos
     from f5tts_tpu_torch.ops.kernels.flash_attention import flash_attention, rope_rows
+    from f5tts_tpu_torch.ops.kernels.row_norm import row_norm
     from f5tts_tpu_torch.sampling.euler import SamplerConfig, sample_cfm
 
     engine = TTSEngine(dit_np, dit_cfg, voc_np, tok, EngineConfig(vocoder=voc_cfg), device=dev)
@@ -1096,7 +1200,7 @@ def engine_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, launches: dict) -> 
         ("ನಮಸ್ಕಾರ, ಇದು ಮೂರನೇ ವಿನಂತಿ.", synthetic_ref(4.0, 180.0, 2), "Reference speech for the third voice."),
     ]
     n_blocks = dit_cfg.depth
-    wrappers = {"flash_attention": flash_attention, "rope_rows": rope_rows, "conv_pos": conv_pos}
+    wrappers = {"flash_attention": flash_attention, "rope_rows": rope_rows, "conv_pos": conv_pos, "row_norm": row_norm}
     for w in wrappers.values():
         w.launches = 0
     t0 = time.perf_counter()
@@ -1116,8 +1220,10 @@ def engine_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, launches: dict) -> 
     for name, count in got.items():
         launches[name]["serve"] = count
     n_forwards = sum(forwards for forwards, _ in solves)  # each one fused 2b-row forward
-    # per forward: each block's attention kernel and its RoPE pre-pass; the conv-pos pair is one launch
-    want = {"flash_attention": n_blocks * n_forwards, "rope_rows": n_blocks * n_forwards, "conv_pos": n_forwards}
+    # per forward: each block's attention kernel and its RoPE pre-pass; the conv-pos pair is one launch; two row
+    # norms a block and the final one
+    want = {"flash_attention": n_blocks * n_forwards, "rope_rows": n_blocks * n_forwards, "conv_pos": n_forwards,
+            "row_norm": (2 * n_blocks + 1) * n_forwards}
     log(f"engine: {len(requests)} requests, {len(solves)} solves (forwards, rows) {solves} in {wall:.3f} s; launches "
         f"{got} (want {want})")
     check(any(b > 1 for _, b in solves), "no solve batched several rows")
@@ -1177,13 +1283,15 @@ def int8_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card: str, launches: 
     from f5tts_tpu_torch.models.dit import dit_forward
     from f5tts_tpu_torch.ops.kernels.conv_pos import conv_pos
     from f5tts_tpu_torch.ops.kernels.flash_attention import flash_attention, rope_rows
+    from f5tts_tpu_torch.ops.kernels.row_norm import row_norm
     from f5tts_tpu_torch.ops.kernels.quant_matmul import quant_matmul
 
     wrappers = {"quant_matmul": quant_matmul, "flash_attention": flash_attention, "rope_rows": rope_rows,
-                "conv_pos": conv_pos}
-    # per DiT forward: every block's six linears, its attention kernel and that kernel's RoPE pre-pass; one conv pair
+                "conv_pos": conv_pos, "row_norm": row_norm}
+    # per DiT forward: every block's six linears, its attention kernel and that kernel's RoPE pre-pass; one conv pair;
+    # two row norms a block (bf16 activations, as in the bf16 engine) and the final one
     per_forward = {"quant_matmul": QUANTIZED_LINEARS * dit_cfg.depth, "flash_attention": dit_cfg.depth,
-                   "rope_rows": dit_cfg.depth, "conv_pos": 1}
+                   "rope_rows": dit_cfg.depth, "conv_pos": 1, "row_norm": 2 * dit_cfg.depth + 1}
     engine = TTSEngine(dit_np, dit_cfg, voc_np, tok, EngineConfig(vocoder=voc_cfg, quantization="int8"), device=dev)
     blocks = engine.dit_params["blocks"]
     for group, name in [("attn", n) for n in ("to_q", "to_k", "to_v", "to_out")] + [("ff", "in"), ("ff", "out")]:
@@ -1430,6 +1538,7 @@ def _serving_requests(service, card: str, launches: dict, mem_base: int, mem_loa
     from f5tts_tpu_torch.engine.step_batcher import SolveGroup, StepBatcher, _Job
     from f5tts_tpu_torch.ops.kernels.conv_pos import conv_pos
     from f5tts_tpu_torch.ops.kernels.flash_attention import flash_attention, rope_rows
+    from f5tts_tpu_torch.ops.kernels.row_norm import row_norm
     from f5tts_tpu_torch.serve.schemas import SpeechRequest
 
     engine, batcher = service.engine, service.batcher
@@ -1440,8 +1549,9 @@ def _serving_requests(service, card: str, launches: dict, mem_base: int, mem_loa
     check(isinstance(batcher, StepBatcher) and batcher.adaptive, f"batcher=auto did not serve on StepBatcher: {batcher}")
     k = batcher.progs.k
     solves = _count_solves(engine)  # window solves of this engine: streaming and the equality check
-    wrappers = {"flash_attention": flash_attention, "rope_rows": rope_rows, "conv_pos": conv_pos}
-    per_forward = {"flash_attention": engine.dit_cfg.depth, "rope_rows": engine.dit_cfg.depth, "conv_pos": 1}
+    wrappers = {"flash_attention": flash_attention, "rope_rows": rope_rows, "conv_pos": conv_pos, "row_norm": row_norm}
+    per_forward = {"flash_attention": engine.dit_cfg.depth, "rope_rows": engine.dit_cfg.depth, "conv_pos": 1,
+                   "row_norm": 2 * engine.dit_cfg.depth + 1}
     for w in wrappers.values():
         w.launches = 0
     stats0 = dict(batcher.stats)
@@ -2352,9 +2462,10 @@ def _all_wrappers() -> dict:
     from f5tts_tpu_torch.ops.kernels.ablate_attention import ablate_attention
     from f5tts_tpu_torch.ops.kernels.decode_attention import decode_attention
     from f5tts_tpu_torch.ops.kernels.quant_matmul import quant_matmul
+    from f5tts_tpu_torch.ops.kernels.row_norm import row_norm
 
     return {**_distill_wrappers(), "decode_attention": decode_attention, "quant_matmul": quant_matmul,
-            "ablate_attention": ablate_attention}
+            "ablate_attention": ablate_attention, "row_norm": row_norm}
 
 
 def _launched(what: str, run, want):
@@ -2554,8 +2665,10 @@ def ar_branch_check(dev, card: str) -> None:
             pred = m.linear(params["mel_out"], m.rms_norm(params["norm_out"], h)[:, nt: nt + n_gen])
         return gen, lengths, pred
 
+    per_pass = 2 * cfg.depth + 1  # row-norm launches a decoder pass: two a block and the final norm
     gen, lengths, pred = _launched(f"(c) AR fp32 generation ({len(texts)} x {n_gen} frames, the stop never fires) "
-                                   "and the teacher-forced pass", teacher, {})
+                                   "and the teacher-forced pass", teacher,
+                                   {"row_norm": per_pass * (n_gen + 2)})  # prefill, a pass a frame, the teacher
     err = float((gen - pred).abs().max())
     log(f"(c) AR teacher forcing on {card}: ARConfig() ({n_params} params), fp32, generated frames against the "
         f"teacher-forced predictions over them: max abs {err:.3e} at peak |mel| {float(gen.abs().max()):.3f} (tol "
@@ -2579,12 +2692,14 @@ def ar_branch_check(dev, card: str) -> None:
         check(all(1 <= x <= n for x in lengths), f"AR lengths out of range: {lengths}")
         return lengths
 
-    _launched(f"(c) ARTTSEngine warm call at {short} positions", lambda: run(short), {})
+    _launched(f"(c) ARTTSEngine warm call at {short} positions", lambda: run(short),
+              {"row_norm": per_pass * (short + 1)})  # the prefill and a pass a position
     torch.cuda.reset_peak_memory_stats()
     iters, lens = [], None
     for i in range(3):
         t0 = time.perf_counter()
-        lens = _launched(f"(c) ARTTSEngine call {i + 1}", lambda: run(max_frames), {})
+        lens = _launched(f"(c) ARTTSEngine call {i + 1}", lambda: run(max_frames),
+                         {"row_norm": per_pass * (max_frames + 1)})
         iters.append(time.perf_counter() - t0)
     dt = statistics.median(iters)
     audio_s, budget_s = sum(lens) * hop / sr, batch * max_frames * hop / sr
@@ -2598,7 +2713,8 @@ def ar_branch_check(dev, card: str) -> None:
     dt_short = time.perf_counter() - t0
     _, counts = profile_by_family(
         f"one ARTTSEngine call at {short} positions (batch {batch}, bf16)",
-        lambda: _launched(f"(c) ARTTSEngine call at {short} positions under the profiler", lambda: run(short), {}),
+        lambda: _launched(f"(c) ARTTSEngine call at {short} positions under the profiler", lambda: run(short),
+                          {"row_norm": per_pass * (short + 1)}),
         (("softmax", ("softmax",)), ("gather/copy", ("index", "gather", "copy", "cat", "Memcpy", "Memset"))),
         top=8, device_only=True, wall_plain_ms=dt_short * 1e3)
     log(f"(c) {sum(counts.values()) / short:.1f} device launches per position ({sum(counts.values())} in a call of "
@@ -2672,6 +2788,7 @@ def e2tts_phase(dev, voc_cfg, voc_np, tok, card: str, launches: dict, f5_bench: 
     from f5tts_tpu_torch.models.unett import UNetTConfig, unett_embed, unett_forward
     from f5tts_tpu_torch.ops.kernels.conv_pos import conv_pos
     from f5tts_tpu_torch.ops.kernels.flash_attention import flash_attention, rope_rows
+    from f5tts_tpu_torch.ops.kernels.row_norm import row_norm
     from f5tts_tpu_torch.sampling.euler import SamplerConfig, sample_cfm
 
     t_phase = time.perf_counter()
@@ -2681,16 +2798,17 @@ def e2tts_phase(dev, voc_cfg, voc_np, tok, card: str, launches: dict, f5_bench: 
     fns = {"forward_fn": unett_forward, "embed_fn": unett_embed}
     engine = TTSEngine(u_np, ucfg, voc_np, tok, EngineConfig(vocoder=voc_cfg), device=dev, **fns)
     solves = _count_solves(engine)
-    wrappers = {"flash_attention": flash_attention, "rope_rows": rope_rows, "conv_pos": conv_pos}
+    wrappers = {"flash_attention": flash_attention, "rope_rows": rope_rows, "conv_pos": conv_pos, "row_norm": row_norm}
     for w in wrappers.values():
         w.launches = 0
     _request_waves(engine, BACKBONE_REQUESTS, "E2-TTS")
     got = {name: w.launches for name, w in wrappers.items()}
     forwards = sum(f for f, _ in solves)
-    # exactly the UNetT's 24 + 24 + 1 per forward: a DiT forward (22 + 22 + 1) anywhere would break the count
-    want = {"flash_attention": ucfg.depth * forwards, "rope_rows": ucfg.depth * forwards, "conv_pos": forwards}
+    # exactly the UNetT's 24 + 24 + 1 + 49 per forward: a DiT forward (22 + 22 + 1 + 45) anywhere would break the count
+    want = {"flash_attention": ucfg.depth * forwards, "rope_rows": ucfg.depth * forwards, "conv_pos": forwards,
+            "row_norm": (2 * ucfg.depth + 1) * forwards}
     log(f"E2-TTS Base ({n_params / 1e6:.1f} M params): {len(solves)} solves (forwards, rows) {solves}; launches "
-        f"{got} (want {want}: {ucfg.depth} + {ucfg.depth} + 1 per UNetT forward)")
+        f"{got} (want {want}: {ucfg.depth} + {ucfg.depth} + 1 + {2 * ucfg.depth + 1} per UNetT forward)")
     check(any(b > 1 for _, b in solves), "E2-TTS: no solve batched several rows")
     check(got == want and forwards > 0, f"E2-TTS launch counts {got}, want {want}")
     for name in wrappers:
@@ -2713,7 +2831,7 @@ def e2tts_phase(dev, voc_cfg, voc_np, tok, card: str, launches: dict, f5_bench: 
     got = {name: w.launches for name, w in wrappers.items()}
     seg_forwards = segments * k * 2
     want = {"flash_attention": ucfg.depth * seg_forwards, "rope_rows": ucfg.depth * seg_forwards,
-            "conv_pos": seg_forwards}
+            "conv_pos": seg_forwards, "row_norm": (2 * ucfg.depth + 1) * seg_forwards}
     rel_rms = float(np.sqrt(np.mean((step_wave - window_wave) ** 2)) / np.sqrt(np.mean(window_wave**2)))
     log(f"E2-TTS step batcher: {segments} segments of {k} intervals = {seg_forwards} UNetT forwards, launches {got} "
         f"(want {want}); wave against the window solve: relative RMS {rel_rms:.3e} (tol {STREAM_REL_RMS})")
@@ -2817,6 +2935,7 @@ def mmdit_phase(dev, tok, launches: dict) -> None:
     from f5tts_tpu_torch.models.mmdit import MMDiTConfig, mmdit_forward
     from f5tts_tpu_torch.ops.kernels.conv_pos import conv_pos, conv_pos_plain
     from f5tts_tpu_torch.ops.kernels.flash_attention import flash_attention, rope_rows
+    from f5tts_tpu_torch.ops.kernels.row_norm import row_norm
 
     t_phase = time.perf_counter()
     cfg = MMDiTConfig(text_num_embeds=tok.vocab_size)
@@ -2829,7 +2948,7 @@ def mmdit_phase(dev, tok, launches: dict) -> None:
     time_ = torch.tensor([0.3, 0.8], device=dev)
     drop = torch.tensor([False, True], device=dev)
     mask = torch.arange(n, device=dev)[None, :] < torch.tensor([[n], [800]], device=dev)
-    wrappers = {"flash_attention": flash_attention, "rope_rows": rope_rows, "conv_pos": conv_pos}
+    wrappers = {"flash_attention": flash_attention, "rope_rows": rope_rows, "conv_pos": conv_pos, "row_norm": row_norm}
     p16 = mmdit_params_from_numpy(m_np, dev, torch.bfloat16)
     with torch.no_grad():
         mmdit_forward(p16, cfg, x, cond, text, time_, drop, drop, mask, compute_dtype=torch.bfloat16)  # warm
@@ -2845,11 +2964,16 @@ def mmdit_phase(dev, tok, launches: dict) -> None:
                             mask)
     err = _rel_l2(out[mask], ref[mask])
     log(f"MMDiT (dim {cfg.dim}, depth {cfg.depth}, {sum(a.size for a in _leaves(m_np)) / 1e6:.1f} M params) one forward "
-        f"of {b} x {n} frames + {nt} text tokens: launches {got} (want conv_pos 1, flash 0); bf16 + kernel vs fp32 "
-        f"plain, relative L2 on valid rows {err:.3e} (tol {MMDIT_REL_L2}); {ms:.2f} ms a forward (bf16)")
-    check(got == {"flash_attention": 0, "rope_rows": 0, "conv_pos": 1}, f"MMDiT launch counts {got}")
+        f"of {b} x {n} frames + {nt} text tokens: launches {got} (want conv_pos 1, flash 0, row_norm {4 * cfg.depth}); "
+        f"bf16 + kernel vs fp32 plain, relative L2 on valid rows {err:.3e} (tol {MMDIT_REL_L2}); {ms:.2f} ms a "
+        f"forward (bf16)")
+    # row norms: four a joint block (the two streams' AdaLN and MLP norms), three in the last, whose text stream
+    # ends at its attention, and the output norm
+    check(got == {"flash_attention": 0, "rope_rows": 0, "conv_pos": 1, "row_norm": 4 * cfg.depth},
+          f"MMDiT launch counts {got}")
     check(bool(torch.isfinite(out).all()) and np.isfinite(err) and err <= MMDIT_REL_L2, f"MMDiT bf16 vs fp32: {err}")
-    launches["conv_pos"]["mmdit"] = got["conv_pos"]
+    for name in ("conv_pos", "row_norm"):
+        launches[name]["mmdit"] = got[name]
     del p16, p32
 
     # the conv-pos kernel as the MMDiT calls it (no mask) against its plain version; not counted
@@ -2877,6 +3001,7 @@ def bigvgan_phase(dev, dit_cfg, dit_np, tok, card: str, launches: dict) -> None:
     from f5tts_tpu_torch.models.convert import bigvgan_params_from_numpy, init_bigvgan_numpy
     from f5tts_tpu_torch.ops.kernels.conv_pos import conv_pos
     from f5tts_tpu_torch.ops.kernels.flash_attention import flash_attention, rope_rows
+    from f5tts_tpu_torch.ops.kernels.row_norm import row_norm
     from f5tts_tpu_torch.ops.mel import MelConfig
 
     t_phase = time.perf_counter()
@@ -2885,7 +3010,7 @@ def bigvgan_phase(dev, dit_cfg, dit_np, tok, card: str, launches: dict) -> None:
     engine = TTSEngine(dit_np, dit_cfg, b_np, tok, EngineConfig(mel=MelConfig(flavor="bigvgan"), vocoder_type="bigvgan",
                                                                bigvgan=bcfg), device=dev)
     solves = _count_solves(engine)
-    wrappers = {"flash_attention": flash_attention, "rope_rows": rope_rows, "conv_pos": conv_pos}
+    wrappers = {"flash_attention": flash_attention, "rope_rows": rope_rows, "conv_pos": conv_pos, "row_norm": row_norm}
     for w in wrappers.values():
         w.launches = 0
     text, secs, f0, ref_text = BACKBONE_REQUESTS[0]
@@ -2894,7 +3019,8 @@ def bigvgan_phase(dev, dit_cfg, dit_np, tok, card: str, launches: dict) -> None:
     frames = sum(min(r.duration, 1024) - r.ref_frames for r in plan.rows)
     got = {name: w.launches for name, w in wrappers.items()}
     forwards = sum(f for f, _ in solves)
-    want = {"flash_attention": dit_cfg.depth * forwards, "rope_rows": dit_cfg.depth * forwards, "conv_pos": forwards}
+    want = {"flash_attention": dit_cfg.depth * forwards, "rope_rows": dit_cfg.depth * forwards, "conv_pos": forwards,
+            "row_norm": (2 * dit_cfg.depth + 1) * forwards}
     log(f"BigVGAN engine ({sum(a.size for a in _leaves(b_np)) / 1e6:.1f} M vocoder params): {len(plan.rows)} row, "
         f"{frames} generated frames -> {len(wave)} samples (want {frames * 256}); launches {got} (want {want})")
     check(len(plan.rows) == 1 and len(wave) == frames * 256, "BigVGAN request: wrong wave length")
@@ -3988,6 +4114,7 @@ def _fused_qkv_check(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card: str, laun
     from f5tts_tpu_torch.models.modules import fuse_attention_qkv
     from f5tts_tpu_torch.ops.kernels.conv_pos import conv_pos
     from f5tts_tpu_torch.ops.kernels.flash_attention import flash_attention, rope_rows
+    from f5tts_tpu_torch.ops.kernels.row_norm import row_norm
     from f5tts_tpu_torch.ops.rope import rotary_freqs
 
     fused_np = {**dit_np, "blocks": {**dit_np["blocks"], "attn": fuse_attention_qkv(dit_np["blocks"]["attn"])}}
@@ -4026,7 +4153,7 @@ def _fused_qkv_check(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card: str, laun
     del mels
     torch.cuda.empty_cache()
 
-    wrappers = {"flash_attention": flash_attention, "rope_rows": rope_rows, "conv_pos": conv_pos}
+    wrappers = {"flash_attention": flash_attention, "rope_rows": rope_rows, "conv_pos": conv_pos, "row_norm": row_norm}
     if bf16_bench is None:
         bf16_bench = bench_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card)
     for wr in wrappers.values():
@@ -4035,7 +4162,8 @@ def _fused_qkv_check(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card: str, laun
     for name, wr in wrappers.items():
         launches[name]["bench_fused"] = wr.launches
     forwards = 5 * 20  # a warm call, the profiled call and three timed ones, 20 forwards each
-    want = {"flash_attention": dit_cfg.depth * forwards, "rope_rows": dit_cfg.depth * forwards, "conv_pos": forwards}
+    want = {"flash_attention": dit_cfg.depth * forwards, "rope_rows": dit_cfg.depth * forwards, "conv_pos": forwards,
+            "row_norm": (2 * dit_cfg.depth + 1) * forwards}
     check({name: wr.launches for name, wr in wrappers.items()} == want,
           f"fused bench launch counts {({name: wr.launches for name, wr in wrappers.items()})}, want {want}")
     fams = ("flash_attention", "rope_rows", "conv_pos")
@@ -4093,12 +4221,13 @@ def _native_audio_check(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, launches: di
 
     from f5tts_tpu_torch.ops.kernels.conv_pos import conv_pos
     from f5tts_tpu_torch.ops.kernels.flash_attention import flash_attention, rope_rows
+    from f5tts_tpu_torch.ops.kernels.row_norm import row_norm
 
     engine = TTSEngine(dit_np, dit_cfg, voc_np, tok, EngineConfig(vocoder=voc_cfg), device=dev)
     solves = _count_solves(engine)
     ref, ref_text = synthetic_ref(3.0, 130.0, 22), "A reference clip for the streamed request."
     text = ("A streamed request hands back each chunk as its solve ends, joined by the native crossfade. " * 4).strip()
-    wrappers = {"flash_attention": flash_attention, "rope_rows": rope_rows, "conv_pos": conv_pos}
+    wrappers = {"flash_attention": flash_attention, "rope_rows": rope_rows, "conv_pos": conv_pos, "row_norm": row_norm}
     for wr in (*wrappers.values(), native.crossfade_pair):
         wr.launches = 0
     t0 = time.perf_counter()
@@ -4107,7 +4236,8 @@ def _native_audio_check(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, launches: di
     wall = time.perf_counter() - t0
     forwards = sum(f for f, _ in solves)
     got = {name: wr.launches for name, wr in wrappers.items()}
-    want = {"flash_attention": dit_cfg.depth * forwards, "rope_rows": dit_cfg.depth * forwards, "conv_pos": forwards}
+    want = {"flash_attention": dit_cfg.depth * forwards, "rope_rows": dit_cfg.depth * forwards, "conv_pos": forwards,
+            "row_norm": (2 * dit_cfg.depth + 1) * forwards}
     joins = native.crossfade_pair.launches
     log(f"(b) synthesize_streaming: {len(segments)} segments in {wall:.3f} s, solves (forwards, rows) {solves}; "
         f"native crossfade calls {joins} (want {len(solves) - 1}: one per chunk join); launches {got} (want {want})")
@@ -4130,7 +4260,8 @@ def _harness_check(launches: dict) -> None:
 
     depth = qh.DiTConfig.base().depth
     calls = sum(qh.CONFIGS[n].steps * EVALS_PER_STEP[qh.CONFIGS[n].method] for n in HARNESS_CONFIGS)  # one 2b pair each
-    want = {"flash_attention": depth * calls, "rope_rows": depth * calls, "conv_pos": calls}
+    want = {"flash_attention": depth * calls, "rope_rows": depth * calls, "conv_pos": calls,
+            "row_norm": (2 * depth + 1) * calls}
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         argv = ["--geometry", "base", "--dtype", "bf16", "--prompts", "4", "--configs", ",".join(HARNESS_CONFIGS),
@@ -4139,7 +4270,7 @@ def _harness_check(launches: dict) -> None:
         result = _launched(f"(c) quality harness at Base ({calls} DiT forwards of 8 rows)", lambda: qh.main(argv), want)
     secs = time.perf_counter() - t0
     for name, n in want.items():
-        launches[name]["quality_harness"] = n
+        launches.setdefault(name, {})["quality_harness"] = n
     rows = result["rows"]
     numbers = [v for r in rows for k, v in r.items() if isinstance(v, float)]
     check([r["name"] for r in rows] == list(HARNESS_CONFIGS) and all(np.isfinite(numbers)),
@@ -4188,7 +4319,8 @@ def _tools_e2e(dev, card: str, launches: dict) -> None:
     cfg, nfe = e2e.base_config(), TOOLS_E2E["nfe"]
     forwards = nfe  # Euler, CFG fused: one 2-row forward a step
     want = {"flash_attention": cfg.depth * forwards * 4, "rope_rows": cfg.depth * forwards,  # fp32: RoPE in the kernel
-            "conv_pos": forwards + 3 * 2 * forwards}  # fp32 conv-pos: one launch a layer
+            "conv_pos": forwards + 3 * 2 * forwards,  # fp32 conv-pos: one launch a layer
+            "row_norm": (2 * cfg.depth + 1) * forwards * 4}
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="f5_e2e_") as tmp:
         result, _ = _launched(f"(a) e2e_real_ckpt at Base ({TOOLS_E2E['dtype']} engine, NFE {nfe}, bucket "
@@ -4197,7 +4329,7 @@ def _tools_e2e(dev, card: str, launches: dict) -> None:
                                               device=dev, **TOOLS_E2E, log=lambda m: log(f"(a) {m}")), want)
         left = os.listdir(tmp)
     for name, n in want.items():
-        launches[name]["tools_e2e"] = n
+        launches.setdefault(name, {})["tools_e2e"] = n
     log(f"(a) e2e_real_ckpt on {card}: {json.dumps(result)} in {time.perf_counter() - t0:.1f} s")
     check(result["parity_ok"] and result["mel_rel"] <= e2e.PARITY_REL
           and result["online_mel_rel"] > e2e.ONLINE_MIN_REL and result["wave_samples"] > 0 and not left,
@@ -4224,12 +4356,13 @@ def _tools_strict(dev, card: str, launches: dict) -> None:
         def want(got):
             forwards["n"] = got["conv_pos"]
             return {"flash_attention": depth * forwards["n"], "rope_rows": depth * forwards["n"],
-                    "conv_pos": forwards["n"]}
+                    "conv_pos": forwards["n"], "row_norm": (2 * depth + 1) * forwards["n"]}
 
         out = _launched("(b) strict_live_probe over the service (seeded Base, bf16)",
                         lambda: slp.run("service", settings, work, log=lambda m: log(f"(b) {m}")), want)
-    for name, per_forward in (("flash_attention", depth), ("rope_rows", depth), ("conv_pos", 1)):
-        launches[name]["tools_strict"] = per_forward * forwards["n"]
+    for name, per_forward in (("flash_attention", depth), ("rope_rows", depth), ("conv_pos", 1),
+                              ("row_norm", 2 * depth + 1)):
+        launches.setdefault(name, {})["tools_strict"] = per_forward * forwards["n"]
     rows = out["rows"]
     log(f"(b) strict_live_probe on {card} in {time.perf_counter() - t0:.1f} s: threshold {out['threshold']}, rows "
         f"{json.dumps(rows)}; {out['note']}")
@@ -4253,19 +4386,26 @@ def _tools_profile(dev, card: str, launches: dict) -> None:
                  "plain-attn": (0, 1)}  # variant -> (attention kernels, conv-pos kernel) a forward
     want_solve = {v: {"flash_attention": a * cfg.depth * forwards, "rope_rows": a * cfg.depth * forwards,
                       "conv_pos": c * forwards} for v, (a, c) in per_solve.items()}
+    norms = {v: (cfg.depth + 1 if v == "no-adaln" else 2 * cfg.depth + 1) * forwards  # no-adaln: the second
+             for v in want_solve}                                                  # norm and the final one
     want = {k: sum(w[k] * (calls + (v == "full")) for v, w in want_solve.items())  # full: one profiled solve more
             for k in ("flash_attention", "rope_rows", "conv_pos")}
+    want["row_norm"] = sum(r * (calls + (v == "full")) for v, r in norms.items())
     originals = {name: getattr(m, name) for name, _ in ps.KNOCKOUTS.values()}
     t0 = time.perf_counter()
     out = _launched("(c) profile_sampler, six variants", lambda: ps.profile(
         params, cfg, inputs, iters=TOOLS_PROFILE_ITERS, device=dev, log=lambda msg: log(f"(c) {msg}")), want)
     for name, n in want.items():
-        launches[name]["tools_profile"] = n
+        launches.setdefault(name, {})["tools_profile"] = n
     check(all(getattr(m, name) is fn for name, fn in originals.items()), "a knock-out was left patched")
     check(out["launches"] == want_solve, f"knock-out launches per solve {out['launches']}, want {want_solve}")
     fams = out["families"] or {}
     check(fams.get("flash_attention", {}).get("launches") == cfg.depth * forwards
-          and fams.get("conv_pos", {}).get("launches") == forwards, f"full's profile families {fams}")
+          and fams.get("conv_pos", {}).get("launches") == forwards
+          and fams.get("row_norm", {}).get("launches") == norms["full"], f"full's profile families {fams}")
+    total = sum(f["launches"] for f in fams.values())
+    log(f"(c) full's profiled solve: {total} device launches, {total / forwards:.1f} a forward (the sampler's own "
+        f"ops included)")
     t = out["times_s"]
     shares = sum(t["full"] - t[v] for v in ("no-attention", "no-ff", "no-convpos", "no-adaln"))
     log(f"(c) knock-out table on {card} (b 8 x 1024, Ralston NFE 20, CFG 2, bf16): "
@@ -4283,11 +4423,12 @@ def _tools_component(dev, card: str, launches: dict) -> None:
 
     depth, iters = DiTConfig.base().depth, 5
     steps = iters + 1  # a warm call and the timed ones, per path
-    want = {"flash_attention": depth * steps, "rope_rows": depth * steps, "conv_pos": 2 * steps}
+    want = {"flash_attention": depth * steps, "rope_rows": depth * steps, "conv_pos": 2 * steps,
+            "row_norm": (2 * depth + 1) * 2 * steps}  # the norms on both attention paths
     out = _launched("(d) component_bench", lambda: cb.run(DiTConfig.base(), VocosConfig(), 16, 1024, iters, dev,
                                                            log=lambda m: log(f"(d) {m}")), want)
     for name, n in want.items():
-        launches[name]["tools_component"] = n
+        launches.setdefault(name, {})["tools_component"] = n
     log(f"(d) component_bench on {card}: {json.dumps(out)}")
     check(all(np.isfinite(out[k]) and out[k] > 0 for k in ("dit_step_plain_ms", "dit_step_flash_ms",
                                                            "vocos_decode_ms")), f"component times {out}")
@@ -4434,7 +4575,7 @@ def main():
         tok = Tokenizer.from_file(os.path.join(HERE, "examples", "vocab.txt"))
         dit_cfg, voc_cfg = DiTConfig(text_num_embeds=tok.vocab_size), VocosConfig()
         dit_np, voc_np = init_dit_numpy(dit_cfg, seed=0), init_vocos_numpy(voc_cfg, seed=1)
-        launches = {name: {} for name in DISTILL_WRAPPERS}
+        launches = {name: {} for name in (*DISTILL_WRAPPERS, "row_norm")}
         if args.serving_only:
             serving_phase(dev, dit_cfg, voc_cfg, dit_np, voc_np, tok, card, launches)
         elif args.distill_only:
@@ -4451,7 +4592,7 @@ def main():
     kernels = [attention_phase(dev), conv_phase(dev), *train_kernel_phase(dev), decode_attention_phase(dev),
                quant_matmul_phase(dev)]
     kernels[-1]["tp_modes"], companions = quant_tp_phase(dev)  # kernel 5's row-parallel modes and companions
-    kernels += [*companions, ablate_attention_phase(dev)]
+    kernels += [*companions, row_norm_phase(dev), ablate_attention_phase(dev)]
     launches = {k["name"]: {} for k in kernels}  # kernel -> path -> launches, each path's counts set to 0 before it
     launches["rope_rows"] = {}  # the serving attention's RoPE pre-pass, counted apart from its main kernel
     launches["ablate_attention"]["ablation"] = kernels[-1].pop("ablation_launches")
@@ -4494,7 +4635,7 @@ def main():
         "bound_by", "library_ms", "launches_by_path",
         *(key for key in ("eager_ms", "int_mm_ms", "bf16_matmul_ms", "mma_sync_s8_top_s", "wgmma_s8_top_s",
                           "graph_ms", "variants_ms", "other_shapes", "tp_modes", "kernel",
-                          "layouts_ms", "ablation_rows", "rope_rows_launches",
+                          "layouts_ms", "ablation_rows", "max_rel_peak_err", "rope_rows_launches",
                           "rope_rows_launches_by_path") if key in k))}
         for k in kernels]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -436,7 +436,8 @@ class TTSEngine:
         if self.device.type == "cuda":
             from f5tts_tpu_torch.ops.kernels import _build
 
-            names = ["flash_attention", "conv_pos"] + (["quant_matmul"] if self.cfg.quantization == "int8" else [])
+            names = (["flash_attention", "conv_pos", "row_norm"]
+                     + (["quant_matmul"] if self.cfg.quantization == "int8" else []))
             _build.build(names)
             for name in names:
                 _build.load(name)

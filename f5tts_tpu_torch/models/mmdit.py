@@ -97,10 +97,10 @@ def _block(p, x, c, t, heads: int, freqs_x, freqs_c, mask, context_pre_only: boo
         c = None
     else:
         c = c + c_gate_msa[:, None] * c_attn
-        norm_c = m.layer_norm(c) * (1 + c_scale_mlp[:, None]) + c_shift_mlp[:, None]
+        norm_c = m.modulated_layer_norm(c, c_scale_mlp, c_shift_mlp)
         c = c + c_gate_mlp[:, None] * m.feed_forward(p["ff_c"], norm_c)
     x = x + x_gate_msa[:, None] * x_attn
-    norm_x = m.layer_norm(x) * (1 + x_scale_mlp[:, None]) + x_shift_mlp[:, None]
+    norm_x = m.modulated_layer_norm(x, x_scale_mlp, x_shift_mlp)
     return x + x_gate_mlp[:, None] * m.feed_forward(p["ff_x"], norm_x), c
 
 

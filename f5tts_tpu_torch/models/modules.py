@@ -11,6 +11,11 @@ RMS norm and the GRN norm in fp32, the reference's head-0-only flat RoPE.
 ``quant_matmul`` wrapper. ``attention(impl="flash")`` and
 ``conv_pos_embedding(impl="fused")`` go through the kernel wrappers (CUDA kernel on a GPU tensor, plain version on a
 CPU tensor); ``impl="plain"`` calls the plain versions on any device.
+AdaLN's modulated layer norm (``modulated_layer_norm``) and ``rms_norm``
+take the row-norm kernel on a CUDA tensor that carries no gradient (serving
+runs under ``torch.no_grad()``): one launch, fp32 math, one rounding, where
+the chain rounds the norm and each modulation step to ``x.dtype``. With a
+gradient to carry, and on the CPU, they are the JAX package's chain.
 
 Training mode (``attention(training=True)``, ``dit_block(training=True)``)
 takes the differentiable kernels: RoPE on q/k in PyTorch, then
@@ -59,6 +64,7 @@ from f5tts_tpu_torch.ops.kernels.conv_pos import conv_pos, conv_pos_plain, conv_
 from f5tts_tpu_torch.ops.kernels.flash_attention import flash_attention
 from f5tts_tpu_torch.ops.kernels.flash_attention_train import flash_attention_train
 from f5tts_tpu_torch.ops.kernels.quant_matmul import kernel_layout, quant_matmul, rescale_rows, row_amax
+from f5tts_tpu_torch.ops.kernels.row_norm import row_norm, row_norm_plain
 from f5tts_tpu_torch.ops.rope import apply_rotary, apply_rotary_per_head
 
 INT8_FLOORS = dict(amax_floor=0.0, scale_floor=1e-8)  # _linear_int8's floor in the JAX package: the scale at 1e-8
@@ -280,12 +286,27 @@ def layer_norm(x, eps: float = 1e-6, weight=None, bias=None):
     return y.to(x.dtype)
 
 
+def _carries_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def modulated_layer_norm(x, scale, shift):
+    """AdaLN's ``layer_norm(x) * (1 + scale) + shift`` of ``x (b, n, c)`` with
+    ``scale``, ``shift`` ``(b, c)``. A CUDA ``x`` with no gradient to carry
+    takes the row-norm kernel (one launch, fp32 math, one rounding to
+    ``x.dtype``); otherwise the chain as the JAX package spells it."""
+    if x.is_cuda and not _carries_grad(x, scale, shift):
+        return row_norm(x.contiguous(), scale=scale, shift=shift, eps=1e-6)
+    return layer_norm(x) * (1 + scale[:, None]) + shift[:, None]
+
+
 def rms_norm(p, x, eps: float = 1e-8):
     """x-transformers RMSNorm (the UNetT's): ``x * sqrt(dim) * g`` over the
-    unit-RMS row, in fp32."""
-    x32 = x.float()
-    normed = x32 * torch.rsqrt(torch.clamp_min((x32 * x32).sum(-1, keepdim=True), eps)) * (x.shape[-1] ** 0.5)
-    return (normed * p["g"].float()).to(x.dtype)
+    unit-RMS row, in fp32. A CUDA ``x`` with no gradient to carry takes the
+    row-norm kernel, as ``modulated_layer_norm`` does."""
+    if x.is_cuda and not _carries_grad(x, p["g"]):
+        return row_norm(x.contiguous(), g=p["g"], eps=eps)
+    return row_norm_plain(x, g=p["g"], eps=eps)
 
 
 def _where_rows(mask, x):
@@ -379,13 +400,13 @@ def adaln_zero(p, x, emb):
     """Modulated x for attention plus (gate_msa, shift_mlp, scale_mlp, gate_mlp)."""
     mod = linear(p["linear"], F.silu(emb))
     shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mod.chunk(6, dim=-1)
-    h = layer_norm(x) * (1 + scale_msa[:, None]) + shift_msa[:, None]
+    h = modulated_layer_norm(x, scale_msa, shift_msa)
     return h, gate_msa, shift_mlp, scale_mlp, gate_mlp
 
 
 def adaln_zero_final(p, x, emb):
     scale, shift = linear(p["linear"], F.silu(emb)).chunk(2, dim=-1)
-    return layer_norm(x) * (1 + scale[:, None]) + shift[:, None]
+    return modulated_layer_norm(x, scale, shift)
 
 
 # ---------------------------------------------------------------------------
@@ -512,5 +533,5 @@ def dit_block(p, x, t_emb, heads: int, rope_freqs=None, mask=None, impl: str = "
     norm, gate_msa, shift_mlp, scale_mlp, gate_mlp = adaln_zero(p["attn_norm"], x, t_emb)
     x = x + gate_msa[:, None] * attention(p["attn"], norm, heads, rope_freqs, mask, impl, rope_all_heads,
                                           training, attn_seed, dropout_rate, rope_cos_sin, tp, cp, rows)
-    norm = layer_norm(x) * (1 + scale_mlp[:, None]) + shift_mlp[:, None]
+    norm = modulated_layer_norm(x, scale_mlp, shift_mlp)
     return x + gate_mlp[:, None] * feed_forward(p["ff"], norm, ff_seed, dropout_rate, tp, rows)

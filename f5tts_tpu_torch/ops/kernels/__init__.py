@@ -7,4 +7,4 @@ integer attribute (``wrapper.launches``), added to under a lock
 """
 
 KERNEL_SOURCES = ("flash_attention", "conv_pos", "flash_attention_train", "decode_attention",
-                  "quant_matmul", "ablate_attention")  # csrc/<name>.cu
+                  "quant_matmul", "ablate_attention", "row_norm")  # csrc/<name>.cu

@@ -84,6 +84,7 @@ def graph_seconds(fn, replays: int = 3) -> tuple[float, object]:
 
 FAMILIES = (("flash_attention", ("flash_wgmma", "flash_fwd")), ("rope_rows", ("rope_rows",)),
             ("conv_pos", ("conv_pair", "conv_generic")), ("decode_attention", ("decode_attn",)),
+            ("row_norm", ("row_norm",)),
             ("gemm", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "splitK")), ("reduction", ("reduce_kernel",)),
             ("elementwise", ("elementwise", "vectorized", "unrolled")))
 

@@ -213,6 +213,36 @@ def test_profile_reports_every_variant_on_the_cpu(sampler_case):
     assert list(out["times_s"]) == ["full", "no-attention", "no-ff", "no-convpos", "no-adaln", "plain-attn"]
     assert all(v > 0 for v in out["times_s"].values()) and out["families"] is None
     assert all(c == {"flash_attention": 0, "rope_rows": 0, "conv_pos": 0} for c in out["launches"].values())
+    assert out["forwards"] == 2 and out["device_launches"] is None  # Ralston NFE 2: one step of two evaluations
+
+
+def test_profile_runs_the_unett_through_its_hooks_on_the_cpu():
+    from f5tts_tpu_torch.models.convert import init_unett_numpy, unett_params_from_numpy
+    from f5tts_tpu_torch.models.unett import UNetTConfig, unett_forward
+    from f5tts_tpu_torch.sampling.euler import SamplerConfig, sample_cfm
+
+    cfg = UNetTConfig(dim=64, depth=2, heads=2, dim_head=32, ff_mult=2, mel_dim=100, text_num_embeds=64, text_dim=32,
+                      conv_layers=1)
+    base, init, to_device, fns = ps.BACKBONES["unett"]
+    assert base() == UNetTConfig.base() and fns["forward_fn"] is unett_forward
+    params = to_device(init(cfg, seed=3), "cpu", torch.float32)
+    inputs = ps.make_inputs(cfg, b=2, n=48, ref_frames=12, text_pad=24)
+    calls = []
+
+    def forward(*a, **k):
+        calls.append(a[0] is params)
+        return unett_forward(*a, **k)
+
+    out = ps.profile(params, cfg, inputs, ("full",), iters=1, nfe=2, device="cpu", log=lambda *_: None,
+                     fns={**fns, "forward_fn": forward})
+    assert list(out["times_s"]) == ["full"] and out["forwards"] == 2
+    assert calls == [True] * 4  # a warm solve and a timed one, two fused-CFG forwards each
+    y0 = torch.as_tensor(np.random.default_rng(4).standard_normal((2, 48, cfg.mel_dim)).astype(np.float32))
+    got = ps.solve(params, cfg, inputs, "full", nfe=4, compute_dtype=torch.float32, y0=y0, fns=fns)
+    want = sample_cfm(unett_params_from_numpy(init_unett_numpy(cfg, seed=3), "cpu", torch.float32), cfg, **inputs,
+                      sampler=SamplerConfig(steps=2, cfg_strength=2.0, method="ralston"), y0=y0,
+                      compute_dtype=torch.float32, forward_fn=unett_forward, embed_fn=fns["embed_fn"])
+    assert torch.equal(got, want) and bool(torch.isfinite(got).all())
 
 
 # ---------------------------------------------------------------------------
