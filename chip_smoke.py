@@ -69,8 +69,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    random weights from seeds 0-2, bf16, a stand-in ``ord(c) % vocab``
    tokenizer): three requests through ``ContinuousBatcher`` that share one
    decode, the same burst again (description cache: the T5 must not run), one
-   streamed request whose segments equal the batch path's wave, and the
-   bench request (batch 16 x 430 frames, greedy, no EOS: audio-s/s and decode
+   streamed request whose segments equal the batch path's wave, the decode
+   step's CUDA graph against the eager step at b 1, b 4 and on a stream (its
+   first audio too; times only), and the bench request (batch 16 x 430 frames, greedy, no EOS: audio-s/s and decode
    steps/s, median of 3 after a warm call). Every call's decode-attention
    launches must equal 2 x 24 x (frames + 8) and the F5 kernels' counts stay
    0; a profiler breakdown of one bench call with the busy/idle share; and at
@@ -2173,11 +2174,11 @@ def parler_logit_parity(dev) -> None:
     forced = None
     for name, dtype, attn, fuse in (("plain", torch.float32, "plain", False), ("kernel", torch.bfloat16, "kernel", True)):
         cfg = P.ParlerDecoderConfig(**geo, decode_attn=attn, fuse_decode_qkv=fuse)
-        ctx = P._decode_ctx(params_from_numpy(tree, dev, dtype), cfg, enc, enc_mask, frames, 0, prompt, prompt_mask,
-                            None, None, -1, 0.0, 0, None, dtype)
+        ctx = P.parler_prefill(params_from_numpy(tree, dev, dtype), cfg, enc, enc_mask, frames, 0, prompt, prompt_mask,
+                               None, None, -1, 0.0, 0, None, dtype)
         carry, logits, toks, greedy = ctx.carry0, [], [], []
         for j in range(1, ctx.steps + 1):
-            logits.append(carry[0])
+            logits.append(carry[0].clone())  # a replayed step's logits are a buffer the next replay overwrites
             greedy.append(torch.argmax(carry[0], -1))
             carry, tok = ctx.step(carry, j, forced=None if forced is None else forced[j - 1])
             toks.append(tok)
@@ -2208,6 +2209,61 @@ def parler_full_trees():
     log(f"parler params (T5 {n_params[0]}, decoder {n_params[1]}, DAC {n_params[2]}; seeds 0, 1, 2) in "
         f"{time.perf_counter() - t0:.1f} s")
     return cfgs, trees
+
+
+def parler_graph_on_served_paths(engine, desc: str, text: str, reps: int = 3) -> None:
+    """The decode step's CUDA graph (captured once a call, after the first
+    eager position) on the served paths: ``synthesize_batch`` at b 1 and b 4
+    and a stream's first audio and whole, each against the same call with
+    the capture turned off. Alternating, medians of ``reps``; a time only,
+    no check."""
+    from f5tts_tpu_torch.models import parler as P
+
+    prefill = P.parler_prefill
+
+    def eager_prefill(*a, **k):
+        ctx = prefill(*a, **k)
+        ctx.graphable = False
+        return ctx
+
+    def batch(n):
+        def run():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            engine.synthesize_batch([desc] * n, [text] * n, row_seeds=list(range(5, 5 + n)))
+            return time.perf_counter() - t, None
+        return run
+
+    def stream():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        chunks = engine.synthesize_streaming(desc, text, seed=5)
+        next(chunks)
+        first = time.perf_counter() - t
+        for _ in chunks:
+            pass
+        return time.perf_counter() - t, first
+
+    paths = {"b 1": batch(1), "b 4": batch(4), "stream": stream}
+    times = {(path, mode): [] for path in paths for mode in ("eager", "graph")}
+    try:
+        for _ in range(reps):
+            for path, fn in paths.items():
+                for mode in ("eager", "graph"):
+                    P.parler_prefill = eager_prefill if mode == "eager" else prefill
+                    times[path, mode].append(fn())
+    finally:
+        P.parler_prefill = prefill
+    parts = []
+    for path in paths:
+        e, g = (statistics.median(t for t, _ in times[path, mode]) for mode in ("eager", "graph"))
+        part = f"{path}: eager {e:.3f} s, graph {g:.3f} s ({e / g:.2f}x)"
+        if path == "stream":
+            fe, fg = (statistics.median(f for _, f in times[path, mode]) for mode in ("eager", "graph"))
+            part += f", first audio eager {fe:.3f} s, graph {fg:.3f} s ({fe / fg:.2f}x)"
+        parts.append(part)
+    log(f"parler decode graph on the served paths ({engine.cfg.max_frames} frames a row, medians of {reps}, "
+        f"alternating): " + "; ".join(parts))
 
 
 def parler_phase(dev, card: str, launches: dict, cfgs, trees) -> None:
@@ -2304,6 +2360,7 @@ def parler_phase(dev, card: str, launches: dict, cfgs, trees) -> None:
         f"{len(stream)} samples; max abs difference from the batch path {diff:.3e} (tol {PARLER_STREAM_TOL}), RMS of the "
         f"difference over the wave's RMS {rel_rms:.3e} (wave peak {float(np.abs(full).max()):.4f})")
     check(diff <= PARLER_STREAM_TOL, f"streamed wave differs from the batch path: {diff}")
+    parler_graph_on_served_paths(engine, desc, text)
     del engine, batcher
     torch.cuda.empty_cache()
 

@@ -11,13 +11,15 @@ text -> 44.1 kHz waveform. T5-encode the description, generate DAC codes with
 the delay-pattern KV-cache decode, vocode with the DAC decoder. It runs the
 decode step's cache attention through ``ops/kernels/decode_attention.py``
 (``decode_attn="kernel"``: the CUDA kernel on a GPU, the plain version on the
-CPU).
+CPU). Each batch it decodes is traced in ``GLOBAL_TIMER`` (the ``parler.*``
+names that ``utils/profiling.py`` lists).
 
 Each engine keeps a serving copy of its parameters on its device in
 ``cfg.compute_dtype``. PyTorch runs eagerly, so there is nothing to compile
 per (batch, frames) bucket: the JAX engines' program caches have no
 counterpart, the batch buckets only bound the shapes the card sees, and the
-streaming path's tail segment is not padded.
+streaming path's tail segment is not padded. (On a card the Parler decode
+captures its step in a CUDA graph once a call, ``models/parler.py``.)
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from f5tts_tpu_torch.models.ar import ARConfig, ar_generate
 from f5tts_tpu_torch.models.convert import ar_params_from_numpy, parler_params_from_numpy, vocos_params_from_numpy
 from f5tts_tpu_torch.models.vocos import VocosConfig, vocos_decode
 from f5tts_tpu_torch.utils.device import resolve_device
+from f5tts_tpu_torch.utils.profiling import GLOBAL_TIMER
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -185,11 +188,27 @@ class ParlerTTSEngine:
             raise ValueError(f"text{row} is {n_prompt} tokens, over the {prompt_pad}-token budget: "
                              "split the request into shorter utterances")
 
+    def _encode_inputs(self, descriptions, prompts):
+        """Token ids (``encode_fn`` applied to strings), padded and masked on
+        the device: ``(descriptions, prompts, desc, desc_mask, prompt,
+        prompt_mask)``, the first two as id lists."""
+        cfg = self.cfg
+        if self.encode_fn is not None:
+            descriptions = [self.encode_fn(d) for d in descriptions]
+            prompts = [self.encode_fn(p) for p in prompts]
+        desc, desc_mask = self._pad_ids(descriptions, cfg.desc_pad)
+        prompt, prompt_mask = self._pad_ids(prompts, cfg.prompt_pad, side="left")
+        return (descriptions, prompts, *self._to_device(desc, desc_mask, prompt, prompt_mask))
+
     def synthesize_batch(self, descriptions, prompts, seed: int = 0, frames: int | None = None, row_seeds=None,
-                         strict_lengths: bool = False) -> list[np.ndarray]:
+                         strict_lengths: bool = False, with_codes: bool = False):
         """descriptions/prompts: lists of token-id sequences (or raw strings
         when ``encode_fn`` is set). Returns float32 waves at the DAC rate,
-        trimmed to each row's predicted length.
+        trimmed to each row's predicted length; with ``with_codes``, ``(waves,
+        codes)``: also each row's de-delayed codes, ``(K, length)`` int64 on
+        the host, the tokens the decoder drew before the DAC's clamp of special
+        tokens (``finalize_codes``), so that ``build_delay_pattern`` of them
+        gives back the stream the decode fed itself.
 
         ``row_seeds`` (one int per row) makes each row's sampling stream
         independent of batch composition; ``seed`` alone keys the whole batch.
@@ -201,60 +220,106 @@ class ParlerTTSEngine:
             raise ValueError(f"descriptions ({len(descriptions)}) and prompts ({len(prompts)}) "
                              "must pair up row-for-row")
         cfg = self.cfg
-        if self.encode_fn is not None:
-            descriptions = [self.encode_fn(d) for d in descriptions]
-            prompts = [self.encode_fn(p) for p in prompts]
+        descriptions, prompts, desc, desc_mask, prompt, prompt_mask = self._encode_inputs(descriptions, prompts)
         if strict_lengths:
             for i, (d, pr) in enumerate(zip(descriptions, prompts)):
                 self._check_budget(len(d), len(pr), cfg.desc_pad, cfg.prompt_pad, f" of row {i}")
         frames = cfg.max_frames if frames is None else frames
-        desc, desc_mask = self._pad_ids(descriptions, cfg.desc_pad)
-        prompt, prompt_mask = self._pad_ids(prompts, cfg.prompt_pad, side="left")
-        desc, desc_mask, prompt, prompt_mask = self._to_device(desc, desc_mask, prompt, prompt_mask)
+        b = len(descriptions)
+        GLOBAL_TIMER.add("parler.flushes")
+        GLOBAL_TIMER.add("parler.rows", b)
+        enc = self._cached_encode(descriptions, desc, desc_mask)
+        with GLOBAL_TIMER.stage("parler.prefill"):
+            ctx = P.parler_prefill(self.dec_params, self.dec_cfg, enc, desc_mask, frames, seed, prompt_ids=prompt,
+                                   prompt_mask=prompt_mask, eos_token=cfg.eos_token, temperature=cfg.temperature,
+                                   top_k=cfg.top_k, row_seeds=row_seeds, compute_dtype=self.compute_dtype)
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if self.device.type == "cuda" else None
+        with GLOBAL_TIMER.stage("parler.decode"):
+            if events:
+                events[0].record()  # before the loop's first launch
+            stream, eos_frame = P.parler_decode_positions(ctx)
+            if events:
+                events[1].record()  # after its last
+        GLOBAL_TIMER.add("parler.positions", ctx.steps)
+        GLOBAL_TIMER.add("parler.row_positions", b * ctx.steps)
+        drawn = P.revert_delay_pattern(stream, frames)
+        codes, lengths = P.finalize_codes(drawn, eos_frame, self.dec_cfg, self.dac_cfg.codebook_size)
+        with GLOBAL_TIMER.stage("parler.dac"):
+            wave = P.dac_decode_codes(self.dac_params, codes, self.dac_cfg, compute_dtype=self.compute_dtype)
+        GLOBAL_TIMER.add("parler.frames", b * frames)
+        with GLOBAL_TIMER.stage("parler.finalize"):
+            wave = wave.float().cpu().numpy()
+            lengths = lengths.cpu().numpy()
+            waves = [wave[i, : int(lengths[i]) * self.dac_cfg.hop] for i in range(b)]
+            if with_codes:
+                drawn = drawn.cpu().numpy()
+                row_codes = [drawn[i, :, : int(lengths[i])] for i in range(b)]
+        if events:  # the host copies above have synchronised
+            GLOBAL_TIMER.record("parler.decode_device", events[0].elapsed_time(events[1]) * 1e-3)
+        return (waves, row_codes) if with_codes else waves
 
+    def _cached_encode(self, descriptions, desc, desc_mask):
+        """The T5 states of the rows' descriptions: from the description cache
+        when every row's style is in it, else the T5 over the whole batch."""
+        cfg = self.cfg
         # key on the TRUNCATED ids: _pad_ids clips to desc_pad, so anything
         # past it never reaches the T5
         keys = [tuple(np.asarray(d, np.int32)[: cfg.desc_pad].tolist()) for d in descriptions]
         if all(k in self._desc_cache for k in keys):
             # every row's style is cached: skip the T5
             self.desc_cache_hits += len(keys)
+            GLOBAL_TIMER.add("parler.desc_cache_hits", len(keys))
             enc = torch.stack([self._desc_cache[k] for k in keys])
             for k in keys:
                 self._desc_cache.move_to_end(k)
-        else:
-            self.desc_cache_misses += len(keys)
+            return enc
+        self.desc_cache_misses += len(keys)
+        with GLOBAL_TIMER.stage("parler.encode"):
             enc = self._encode(desc, desc_mask)
-            for i, k in enumerate(keys):
-                self._desc_cache[k] = enc[i]
-                self._desc_cache.move_to_end(k)
-            while len(self._desc_cache) > self.desc_cache_max:
-                self._desc_cache.popitem(last=False)
-        codes, lengths = P.parler_generate(
-            self.dec_params, self.dec_cfg, enc, desc_mask, frames, seed, prompt_ids=prompt,
-            prompt_mask=prompt_mask, eos_token=cfg.eos_token, temperature=cfg.temperature, top_k=cfg.top_k,
-            max_code=self.dac_cfg.codebook_size, row_seeds=row_seeds, compute_dtype=self.compute_dtype)
-        wave = P.dac_decode_codes(self.dac_params, codes, self.dac_cfg, compute_dtype=self.compute_dtype)
-        wave = wave.float().cpu().numpy()
-        lengths = lengths.cpu().numpy()
-        return [wave[i, : int(lengths[i]) * self.dac_cfg.hop] for i in range(len(wave))]
+        GLOBAL_TIMER.add("parler.encode_rows", len(keys))
+        for i, k in enumerate(keys):
+            self._desc_cache[k] = enc[i]
+            self._desc_cache.move_to_end(k)
+        while len(self._desc_cache) > self.desc_cache_max:
+            self._desc_cache.popitem(last=False)
+        return enc
 
-    def synthesize_rows(self, rows: list[ParlerRow]) -> list[tuple[np.ndarray, None]]:
+    def replay_logits(self, rows: list[ParlerRow], codes: list[np.ndarray], asked) -> torch.Tensor:
+        """fp32 logits of the cached decode path at the batch of ``rows``,
+        teacher-forced on each row's ``codes`` (``(K, length)`` as
+        ``synthesize_rows`` returned them; pad past the length): ``(len(asked),
+        steps, K, vocab)`` for the rows ``asked`` (``P.parler_replay_logits``).
+        The description states come from the T5 itself, not its cache."""
+        _, _, desc, desc_mask, prompt, prompt_mask = self._encode_inputs([r.description for r in rows],
+                                                                         [r.prompt for r in rows])
+        K, frames = self.dec_cfg.codebooks, self.cfg.max_frames
+        pad = self.dec_cfg.vocab  # the decode's pad: BOS, the code embedding's extra row
+        full = np.full((len(rows), K, frames), pad, np.int64)
+        for i, c in enumerate(codes):
+            full[i, :, : c.shape[1]] = c
+        stream = torch.as_tensor(P.build_delay_pattern(full, pad, frames + K - 1), device=self.device)
+        return P.parler_replay_logits(self.dec_params, self.dec_cfg, self._encode(desc, desc_mask), desc_mask, stream,
+                                      asked, prompt_ids=prompt, prompt_mask=prompt_mask,
+                                      compute_dtype=self.compute_dtype)
+
+    def synthesize_rows(self, rows: list[ParlerRow]) -> list[tuple[np.ndarray, np.ndarray]]:
         """Row-level batched synthesis (the ``ContinuousBatcher`` primitive):
         co-arriving requests share one decode. Batches are split at
         ``batch_buckets[-1]`` and snapped UP to the next bucket by repeating
         the last row; per-row masks isolate rows, and ``ParlerRow.seed`` keys
         each row's own sampling stream, so outputs don't depend on which rows
-        happened to co-batch."""
-        results: list[tuple[np.ndarray, None]] = []
+        happened to co-batch. Returns per row ``(wave, codes)``, ``codes`` its
+        de-delayed ``(K, length)`` tokens (``synthesize_batch(with_codes=True)``)."""
+        results: list[tuple[np.ndarray, np.ndarray]] = []
         top = self.cfg.batch_buckets[-1]
         for start in range(0, len(rows), top):
             sub = rows[start : start + top]
             bucket = next(v for v in self.cfg.batch_buckets if v >= len(sub))
             padded = sub + [sub[-1]] * (bucket - len(sub))
-            waves = self.synthesize_batch(
+            waves, codes = self.synthesize_batch(
                 [r.description for r in padded], [r.prompt for r in padded],
-                row_seeds=[r.seed for r in padded], strict_lengths=True)
-            results.extend((w, None) for w in waves[: len(sub)])
+                row_seeds=[r.seed for r in padded], strict_lengths=True, with_codes=True)
+            results.extend(zip(waves[: len(sub)], codes[: len(sub)]))
         return results
 
     def synthesize_streaming(self, description, prompt, seed: int = 0, frames: int | None = None):

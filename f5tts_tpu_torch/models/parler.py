@@ -15,8 +15,12 @@ out)`` convs; see ``models/convert.py:parler_params_from_numpy``).
 - ``parler_generate``        -- incremental decode with a KV cache, per-codebook
                                sampling and the delay pattern applied in the
                                loop.
+- ``parler_prefill``, ``parler_decode_positions`` -- its two phases, for a
+                               caller that times them apart (the engine).
 - ``parler_decode_segment``  -- the same decode over a sub-range of positions,
                                the carry handed between calls (streaming).
+- ``parler_replay_logits``   -- the cached step path teacher-forced over given
+                               token streams: fp32 logits (the benchmark's judge).
 - ``dac_decode_codes``       -- DAC codec decoder.
 - ``load_parler_checkpoint`` -- one ParlerTTSForConditionalGeneration state
                                dict -> the three numpy trees
@@ -31,6 +35,8 @@ a GPU tensor, plain version on a CPU tensor), ``"plain"`` the plain version on
 any device. There is one cache layout: per-layer K and V ``(b, n_kv, total,
 d)``, written IN PLACE at the step's position, so a carry handed back by
 ``parler_decode_segment`` shares its cache with the carry that was passed in.
+On a card each decode call captures the step's pass through the decoder in a
+CUDA graph after its first position and replays it (``_DecodeCtx``).
 
 Sampling: temperature <= 0 is argmax. Otherwise tokens are drawn from
 ``torch.Generator``s seeded by ``(seed, row seed, position)``,
@@ -48,6 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from f5tts_tpu_torch.models import modules as m
+from f5tts_tpu_torch.ops.kernels import _build
 from f5tts_tpu_torch.ops.kernels.decode_attention import decode_attention, decode_attention_plain
 from f5tts_tpu_torch.train.tree import tree_map
 
@@ -418,7 +425,17 @@ class _DecodeCtx:
     the key-padding bias. ``carry0 = (logits, cache, ctx, eos_frame)`` is the
     post-prefill state; ``step`` advances a carry by one code-stream position.
     The context rides in the carry (where the JAX package carries its PRNG
-    key) so that ``parler_decode_segment`` does not repeat the prefill."""
+    key) so that ``parler_decode_segment`` does not repeat the prefill.
+
+    On a card the position's pass through the decoder (embedding to logits,
+    ``_forward``) runs from a CUDA graph: the first step runs it eagerly,
+    then it is captured once, with the tokens and the position in static
+    buffers, and every later step replays it. Eager, the step is paced by
+    the host's ~600 launches a position, several times the card's work at
+    batch 32; replayed, by the card. The draw, EOS and the delay pattern stay
+    eager (the per-row generators are reseeded from the host each position).
+    The graph launches the same kernels in the same order as the eager
+    step, so its results are the eager step's."""
 
     def __init__(self, params, cfg: ParlerDecoderConfig, enc, enc_mask, frames: int, seed: int, prompt_ids,
                  prompt_mask, bos_token, pad_token, eos_token: int, temperature: float, top_k: int, row_seeds,
@@ -522,9 +539,18 @@ class _DecodeCtx:
         self.embed_flat = params["embed_tokens"].reshape(K * rows, cfg.hidden)
         self.embed_off = self.codebook_idx * rows
 
-        logits0 = self._logits(h[:, -1:])
-        eos0 = torch.full((b,), frames, dtype=torch.long, device=dev)
-        self.carry0 = (logits0, cache, self, eos0)
+        self._logits0 = self._logits(h[:, -1:])
+        self._cache = cache
+        self._eos0 = torch.full((b,), frames, dtype=torch.long, device=dev)
+        self.graph = None  # the captured _forward, on a card after the first step
+        self.graphable = dev.type == "cuda"
+
+    @property
+    def carry0(self):
+        """The post-prefill carry, made when asked: stored on the context, it
+        would hold the context in a reference cycle, and its cache and graph
+        would outlive the call until the garbage collector found them."""
+        return (self._logits0, self._cache, self, self._eos0)
 
     def _logits(self, h_last):
         """(b, 1, hidden) -> fp32 (b, K, vocab)."""
@@ -543,19 +569,21 @@ class _DecodeCtx:
             g.manual_seed(_position_seed(self.seed, s, j))
         return _sample_rows(self.gens, logits, self.temperature, self.top_k)
 
-    def _token_through_layers(self, h_tok, cache, abs_pos: int):
+    def _token_through_layers(self, h_tok, pos: torch.Tensor):
         """One token (b, 1, hidden) through all layers; K/V rows written in
-        place at ``abs_pos``. No host synchronisation."""
+        place at the position ``pos`` (a (1,) long tensor on the device, so
+        that a graph can replay it at any position). No host
+        synchronisation."""
         cfg, b, attend = self.cfg, self.b, self.attend
         hidden, heads, n_kv, d, eps = cfg.hidden, cfg.heads, cfg.n_kv, cfg.head_dim, cfg.ln_eps
         scale = d**-0.5
         norm = (hidden,)
         # causal step bound + key padding: built once per position, shared by all layers
-        sa_bias = self.key_bias.masked_fill(self.pos_ids > abs_pos, -1e9)
+        sa_bias = self.key_bias.masked_fill(self.pos_ids > pos, -1e9)
         ca_bias = self.ca_bias
         for l, (ln_sa_w, ln_sa_b, wqkv, w_sa_o, ln_ca_w, ln_ca_b, w_ca_q, w_ca_o, ln_ff_w, ln_ff_b, w_fc1,
                 w_fc2) in enumerate(self.step_layers):
-            ck, cv = cache[l]
+            ck, cv = self.kv_store[l]
             cak, cav = self.ca_kv[l]
             xn = F.layer_norm(h_tok, norm, ln_sa_w, ln_sa_b, eps)
             # a length-1 sequence: (b, 1, heads * d) IS (b, heads, 1, d), so heads split as views
@@ -563,11 +591,11 @@ class _DecodeCtx:
                 qkv = xn @ wqkv[0]
                 q = (qkv[..., :hidden] * scale).view(b, heads, 1, d)
                 # K and V rows of this position, one copy into the layer's (2, b, n_kv, total, d) store
-                self.kv_store[l].select(3, abs_pos).copy_(qkv[..., hidden:].view(b, 2, n_kv, d).transpose(0, 1))
+                self.kv_store[l].index_copy_(3, pos, qkv[..., hidden:].view(b, 2, n_kv, 1, d).transpose(0, 1))
             else:
                 q = ((xn @ wqkv[0]) * scale).view(b, heads, 1, d)
-                ck.select(2, abs_pos).copy_((xn @ wqkv[1]).view(b, n_kv, d))
-                cv.select(2, abs_pos).copy_((xn @ wqkv[2]).view(b, n_kv, d))
+                ck.index_copy_(2, pos, (xn @ wqkv[1]).view(b, n_kv, 1, d))
+                cv.index_copy_(2, pos, (xn @ wqkv[2]).view(b, n_kv, 1, d))
             h_tok = h_tok + attend(q, ck, cv, sa_bias).view(b, 1, hidden) @ w_sa_o
             xn = F.layer_norm(h_tok, norm, ln_ca_w, ln_ca_b, eps)
             q = ((xn @ w_ca_q) * scale).view(b, heads, 1, d)
@@ -575,6 +603,53 @@ class _DecodeCtx:
             xn = F.layer_norm(h_tok, norm, ln_ff_w, ln_ff_b, eps)
             h_tok = h_tok + F.gelu(xn @ w_fc1) @ w_fc2  # exact (erf) GELU
         return h_tok
+
+    def _forward(self, tok: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        """One position's tokens (b, K) at ``pos`` through the decoder: fp32
+        logits (b, K, vocab)."""
+        x = self.embed_flat[tok + self.embed_off].sum(1, keepdim=True).to(self.pos_table.dtype)
+        x = x + self.pos_table.index_select(0, pos)
+        return self._logits(self._token_through_layers(x, pos))
+
+    def _advance(self, tok: torch.Tensor, abs_pos: int) -> torch.Tensor:
+        """``_forward`` at ``abs_pos``: from the graph once it is captured,
+        else eagerly (capturing it after the first eager step on a card).
+        A replay's logits are a static buffer that the next replay
+        overwrites."""
+        if self.graph is not None:
+            self._tok.copy_(tok)
+            self._pos.fill_(abs_pos)
+            self.graph.replay()
+            if self._graph_launches:  # the replay's kernel launches, which the wrappers cannot count
+                _build.count_launch(decode_attention, self._graph_launches)
+            return self._out
+        pos = torch.full((1,), abs_pos, dtype=torch.long, device=tok.device)
+        logits = self._forward(tok, pos)
+        if self.graphable:
+            self._capture(tok, pos)
+        return logits
+
+    def _capture(self, tok: torch.Tensor, pos: torch.Tensor) -> None:
+        """Capture ``_forward`` over static copies of ``tok`` and ``pos`` on a
+        side stream, after the eager step that loaded its kernels and
+        libraries. Capturing launches nothing and waits for nothing, yet the
+        wrapper counts the kernel-4 calls it meets: those, two a layer, are
+        taken back here and counted on each replay instead."""
+        self._tok, self._pos = tok.clone(), pos.clone()
+        main = torch.cuda.current_stream(tok.device)
+        side = torch.cuda.Stream(tok.device)
+        side.wait_stream(main)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self._out = self._forward(self._tok, self._pos)
+            finally:
+                graph.capture_end()
+        main.wait_stream(side)
+        self._graph_launches = 2 * self.cfg.layers if self.attend is decode_attention else 0
+        _build.count_launch(decode_attention, -self._graph_launches)
+        self.graph = graph
 
     def step(self, carry, j: int, forced: torch.Tensor | None = None):
         """Advance by code-stream position ``j`` (1-based): draw the tokens of
@@ -601,19 +676,31 @@ class _DecodeCtx:
         if forced is not None:
             tok = forced
         abs_pos = min(self.p + j, self.total - 1)  # a tail past `steps` stays on the last slot
-        x = self.embed_flat[tok + self.embed_off].sum(1, keepdim=True).to(self.pos_table.dtype)
-        x = x + self.pos_table[abs_pos]
-        h_tok = self._token_through_layers(x, cache, abs_pos)
-        return (self._logits(h_tok), cache, self, eos_frame), tok
+        return (self._advance(tok, abs_pos), cache, self, eos_frame), tok
 
 
-def _decode_ctx(params, cfg, enc, enc_mask, frames, seed, prompt_ids, prompt_mask, bos_token, pad_token,
-                eos_token, temperature, top_k, row_seeds, compute_dtype) -> _DecodeCtx:
-    """Shared decode context: prefill + the per-position step (``ctx.carry0``,
-    ``ctx.step``, ``ctx.steps``)."""
+def parler_prefill(params, cfg: ParlerDecoderConfig, enc, enc_mask, frames: int, seed: int = 0, prompt_ids=None,
+                   prompt_mask=None, bos_token: int | None = None, pad_token: int | None = None, eos_token: int = 1024,
+                   temperature: float = 1.0, top_k: int = 0, row_seeds=None,
+                   compute_dtype: torch.dtype = torch.float32) -> _DecodeCtx:
+    """The decode's shared context: the prefill of ``[prompt ; BOS]`` and the
+    per-position step (``ctx.carry0``, ``ctx.step``, ``ctx.steps``)."""
     with torch.no_grad():
         return _DecodeCtx(params, cfg, enc, enc_mask, frames, seed, prompt_ids, prompt_mask, bos_token,
                           pad_token, eos_token, temperature, top_k, row_seeds, compute_dtype)
+
+
+@torch.no_grad()
+def parler_decode_positions(ctx: _DecodeCtx):
+    """Every position ``1 .. ctx.steps`` from the post-prefill carry: returns
+    ``(stream (b, K, steps), eos_frame (b,))``, the delayed token stream as
+    the step fed it back (pad where the delay pattern or EOS forces it). No
+    host synchronisation."""
+    carry, toks = ctx.carry0, []
+    for j in range(1, ctx.steps + 1):
+        carry, tok = ctx.step(carry, j)
+        toks.append(tok)
+    return torch.stack(toks, dim=2), carry[3]
 
 
 def finalize_codes(codes: torch.Tensor, eos_frame: torch.Tensor, cfg: ParlerDecoderConfig,
@@ -656,15 +743,11 @@ def parler_generate(
     de-delayed; rows that emitted EOS in codebook 0 are padded with 0 past
     their length and report the shorter length (``finalize_codes``). The
     position loop issues no host synchronisation."""
-    ctx = _decode_ctx(params, cfg, enc, enc_mask, frames, seed, prompt_ids, prompt_mask, bos_token, pad_token,
-                      eos_token, temperature, top_k, row_seeds, compute_dtype)
-    carry, toks = ctx.carry0, []
-    for j in range(1, ctx.steps + 1):
-        carry, tok = ctx.step(carry, j)
-        toks.append(tok)
-    # toks[s] holds position s+1 of the code stream
-    codes = revert_delay_pattern(torch.stack(toks, dim=2), frames)
-    codes, lengths = finalize_codes(codes, carry[3], cfg, max_code)
+    ctx = parler_prefill(params, cfg, enc, enc_mask, frames, seed, prompt_ids, prompt_mask, bos_token, pad_token,
+                         eos_token, temperature, top_k, row_seeds, compute_dtype)
+    stream, eos_frame = parler_decode_positions(ctx)
+    # stream[..., s] holds position s+1 of the code stream
+    codes, lengths = finalize_codes(revert_delay_pattern(stream, frames), eos_frame, cfg, max_code)
     return codes.to(torch.int32), lengths.to(torch.int32)
 
 
@@ -699,14 +782,42 @@ def parler_decode_segment(
     run past ``steps``: those positions are clamped onto the last cache slot,
     cannot move ``eos_frame``, and their tokens are the caller's to discard."""
     if carry is None:
-        carry = _decode_ctx(params, cfg, enc, enc_mask, frames, seed, prompt_ids, prompt_mask, bos_token,
-                            pad_token, eos_token, temperature, top_k, row_seeds, compute_dtype).carry0
+        carry = parler_prefill(params, cfg, enc, enc_mask, frames, seed, prompt_ids, prompt_mask, bos_token,
+                               pad_token, eos_token, temperature, top_k, row_seeds, compute_dtype).carry0
     ctx = carry[2]
     toks = []
     for j in js:
         carry, tok = ctx.step(carry, int(j))
         toks.append(tok)
     return carry, torch.stack(toks)
+
+
+@torch.no_grad()
+def parler_replay_logits(params, cfg: ParlerDecoderConfig, enc: torch.Tensor, enc_mask: torch.Tensor | None,
+                         stream: torch.Tensor, rows, *, prompt_ids: torch.Tensor | None = None,
+                         prompt_mask: torch.Tensor | None = None, bos_token: int | None = None,
+                         pad_token: int | None = None, compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The cached decode path teacher-forced over given token streams: the
+    prefill, then ``_DecodeCtx.step(forced=...)`` at every position, at the
+    batch of ``stream``.
+
+    ``stream (b, K, steps)`` is each row's delayed token stream, what the step
+    feeds back at positions ``1 .. steps`` (``build_delay_pattern`` of its
+    codes, pad where the pattern forces it). Returns fp32 logits ``(len(rows),
+    steps, K, vocab)`` of the batch rows ``rows``: entry ``s`` is the
+    distribution position ``s + 1`` is drawn from, entry 0 the prefill's at
+    BOS. The step's own draw is greedy and discarded for the forced tokens."""
+    steps = stream.shape[2]
+    ctx = parler_prefill(params, cfg, enc, enc_mask, steps - cfg.codebooks + 1, 0, prompt_ids, prompt_mask, bos_token,
+                         pad_token, eos_token=-1, temperature=0.0, top_k=0, compute_dtype=compute_dtype)
+    rows = torch.as_tensor(rows, device=stream.device)
+    stream = stream.long()
+    carry = ctx.carry0
+    out = [carry[0][rows]]
+    for j in range(1, steps):
+        carry, _ = ctx.step(carry, j, forced=stream[:, :, j - 1])
+        out.append(carry[0][rows])
+    return torch.stack(out, dim=1)
 
 
 # ---------------------------------------------------------------------------

@@ -23,7 +23,21 @@ The names are fixed, each taken where its work happens:
   their bucket);
 - ``batcher.dispatch_segment`` (per segment), ``batcher.tick_wait`` (per
   tick) and ``batcher.queue_wait`` (per row, from ``submit`` to admission)
-  in the step batcher.
+  in the step batcher;
+- per batch ``ParlerTTSEngine.synthesize_batch`` decodes: spans
+  ``parler.encode`` (the T5, on a description-cache miss),
+  ``parler.prefill`` (the decode context: prefill of ``[prompt ; BOS]``,
+  cross-attention K/V, step weights), ``parler.decode`` (the position
+  loop's launches), ``parler.dac`` (the DAC's launches) and
+  ``parler.finalize`` (the host copies, which wait for the card, and the
+  trimming); ``parler.decode_device``, CUDA timing events from before the
+  loop's first launch to after its last, read once the batch's host copies
+  have synchronised (a card only); counters ``parler.flushes``,
+  ``parler.rows`` (the batch, padding rows included), ``parler.positions``
+  (the loop's steps, ``frames + K - 1``), ``parler.row_positions`` (rows x
+  steps), ``parler.encode_rows`` (rows through the T5),
+  ``parler.desc_cache_hits`` (rows served from the description cache) and
+  ``parler.frames`` (rows x frames sent to the DAC).
 
 While recording is on (``recording()``, or between ``start_device_trace``
 and ``stop_device_trace``) every span is also a

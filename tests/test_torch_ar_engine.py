@@ -109,7 +109,9 @@ def test_synthesize_rows_snaps_to_buckets_and_splits_at_the_top(jax_params):
     rows = [t_ar.ParlerRow("a speaker.", f"utterance {i}.", seed=i) for i in range(7)]
     results = engine.synthesize_rows(rows)
     assert sizes == [4, 4]  # 7 rows: one full top bucket, then 3 snapped up to 4 by repeating the last row
-    assert len(results) == 7 and all(r[1] is None and np.isfinite(r[0]).all() and len(r[0]) == 48 for r in results)
+    # each row's de-delayed codes ride beside its wave: (codebooks, frames), the wave's 48 samples at hop 8
+    assert len(results) == 7 and all(r[1].shape == (DEC["codebooks"], 6) and r[1].dtype == np.int64
+                                     and np.isfinite(r[0]).all() and len(r[0]) == 48 for r in results)
     sizes.clear()
     alone = engine.synthesize_rows(rows[6:])
     assert sizes == [1]

@@ -176,7 +176,8 @@ def test_parler_requests_through_the_batcher():
     b.stop()
     assert sizes == [4] and b.stats == {"batches": 1, "rows": 3, "max_batch_seen": 3}
     for row, (wave, extra) in zip(rows, results):
-        assert extra is None and wave.shape == (8 * dac_cfg.hop,) and np.isfinite(wave).all() and np.abs(wave).max() > 0
+        assert extra.shape == (dec_cfg.codebooks, 8) and wave.shape == (8 * dac_cfg.hop,)  # codes beside the wave
+        assert np.isfinite(wave).all() and np.abs(wave).max() > 0
         np.testing.assert_allclose(wave, engine.synthesize_rows([row])[0][0], atol=1e-5)
     with pytest.raises(ValueError, match="token budget"):  # an oversized request fails alone, before batching
         engine.validate_lengths("d" * 100, "hi.")

@@ -363,6 +363,42 @@ def test_parler_decode_through_the_kernel_matches_the_plain_path(dev):
     assert torch.equal(outs["kernel"][0], outs["plain"][0]) and torch.equal(outs["kernel"][1], outs["plain"][1])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_parler_decode_graph_replays_the_eager_step(dev, dtype):
+    """On a card the decode step's pass through the decoder runs from a CUDA
+    graph after the first step: the tokens drawn and the logits at every
+    position are the eager step's bit for bit (the same kernels in the same
+    order), and each replay's kernel launches are counted."""
+    from f5tts_tpu_torch.models import parler as TP
+    from f5tts_tpu_torch.models.convert import init_parler_decoder_numpy, params_from_numpy
+
+    kw = dict(vocab=40, codebooks=3, hidden=128, layers=2, heads=4, ffn=64, cross_dim=128, prompt_vocab=16)
+    cfg = TP.ParlerDecoderConfig(**kw, fuse_decode_qkv=True)
+    params = params_from_numpy(init_parler_decoder_numpy(cfg, seed=0), dev, dtype)
+    g = torch.Generator().manual_seed(5)
+    enc = torch.randn((2, 9, 128), generator=g).to(dev, dtype)
+    enc_mask = (torch.arange(9)[None] < torch.tensor([[9], [4]])).to(dev)
+    prompt = torch.randint(0, 16, (2, 3), generator=g).to(dev)
+
+    def decode(graph):
+        ctx = TP.parler_prefill(params, cfg, enc, enc_mask, 6, 0, prompt_ids=prompt, eos_token=-1, temperature=1.0,
+                                row_seeds=[3, 4], compute_dtype=dtype)
+        ctx.graphable = graph
+        before = t_dec.decode_attention.launches
+        carry, toks, logits = ctx.carry0, [], []
+        for j in range(1, ctx.steps + 1):
+            carry, tok = ctx.step(carry, j)
+            toks.append(tok)
+            logits.append(carry[0].clone())
+        assert (ctx.graph is not None) is graph
+        assert t_dec.decode_attention.launches - before == 2 * 2 * ctx.steps
+        return torch.stack(toks), torch.stack(logits)
+
+    replayed, eager = decode(True), decode(False)
+    assert torch.equal(replayed[0], eager[0]) and torch.equal(replayed[1], eager[1])
+
+
 def _quant_case(dev, dtype, m, k, n):
     g = torch.Generator().manual_seed(6)
     x = torch.randn((m, k), generator=g) * torch.exp(2.0 * torch.randn((m, 1), generator=g))
